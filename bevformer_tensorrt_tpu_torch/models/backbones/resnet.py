@@ -1,28 +1,62 @@
-"""ResNet-50 backbone, pytorch style, NCHW (port of
+"""ResNet-50/101 backbone with optional DCNv2 stages, NCHW (port of
 `bevformer_tensorrt_tpu/models/backbones/resnet.py`).
 
-Frozen BatchNorm as an affine; the stride sits on the 3x3 conv.  R101,
-caffe style and the DCN stages belong to the small/base slice and are
-refused here.
+Frozen BatchNorm as an affine.  Style "pytorch" puts a block's stride on the
+3x3 conv (R50 at tiny), "caffe" on the first 1x1 (R101 at small and base).
+In a DCN stage the 3x3 conv is `DeformConv2d`: a plain conv predicts offsets
+and mask, `ops.dcn.modulated_deform_conv2d` samples.  The R18/R34 basic
+blocks of the JAX module belong to CenterNet and are not ported yet.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops import dcn as dcn_ops
 from ..layers import FrozenBN, QConv
 
-STAGE_BLOCKS = (3, 4, 6, 3)  # R50
+STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
+
+
+class DeformConv2d(nn.Module):
+    """DCNv2 3x3 block, no bias on the deformable conv.  `conv_offset`
+    emits dg*27 channels in mmcv's layout: the first 2*ntap are the offsets,
+    per tap interleaved (2t = y, 2t+1 = x), the last ntap the mask logits."""
+
+    def __init__(self, in_channels: int, features: int, stride: int = 1,
+                 deform_groups: int = 1):
+        super().__init__()
+        self.stride = stride
+        self.deform_groups = deform_groups
+        self.conv_offset = QConv(in_channels, deform_groups * 27, 3, stride, 1)
+        self.weight = nn.Parameter(torch.empty(features, in_channels, 3, 3))
+
+    def forward(self, x):
+        ntap = self.deform_groups * 9
+        off_mask = self.conv_offset(x)
+        offset = off_mask[:, : 2 * ntap].contiguous()
+        mask = torch.sigmoid(off_mask[:, 2 * ntap:]).contiguous()
+        return dcn_ops.modulated_deform_conv2d(
+            x.contiguous(), offset, mask, self.weight, None, stride=self.stride, padding=1,
+            dilation=1, groups=1, deform_groups=self.deform_groups, layout="NCHW")
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False):
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False,
+                 style: str = "pytorch", dcn: bool = False):
         super().__init__()
-        self.conv1 = QConv(inplanes, planes, 1, 1, 0, bias=False)
+        if style not in ("pytorch", "caffe"):
+            raise ValueError(f"style {style!r}: expected 'pytorch' or 'caffe'")
+        s1, s2 = (stride, 1) if style == "caffe" else (1, stride)
+        self.conv1 = QConv(inplanes, planes, 1, s1, 0, bias=False)
         self.bn1 = FrozenBN(planes)
-        self.conv2 = QConv(planes, planes, 3, stride, 1, bias=False)
+        if dcn:
+            self.conv2 = DeformConv2d(planes, planes, s2)
+        else:
+            self.conv2 = QConv(planes, planes, 3, s2, 1, bias=False)
         self.bn2 = FrozenBN(planes)
         self.conv3 = QConv(planes, planes * 4, 1, 1, 0, bias=False)
         self.bn3 = FrozenBN(planes * 4)
@@ -40,22 +74,24 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    def __init__(self, depth: int = 50, out_indices: Sequence[int] = (3,),
-                 dcn_stages: Sequence[bool] = (False,) * 4):
+    def __init__(self, depth: int = 101, out_indices: Sequence[int] = (1, 2, 3),
+                 dcn_stages: Sequence[bool] = (False,) * 4, style: str = "pytorch"):
         super().__init__()
-        if depth != 50 or any(dcn_stages):
-            raise NotImplementedError("only R50 without DCN is ported (small/base come later)")
+        if depth not in STAGE_BLOCKS:
+            raise NotImplementedError(
+                f"ResNet depth {depth}: only the bottleneck depths {sorted(STAGE_BLOCKS)} are ported")
         self.out_indices = tuple(out_indices)
         self.stem_conv = QConv(3, 64, 7, 2, 3, bias=False)
         self.stem_bn = FrozenBN(64)
         self.blocks = []
         inplanes, planes = 64, 64
-        for stage, n in enumerate(STAGE_BLOCKS):
+        for stage, n in enumerate(STAGE_BLOCKS[depth]):
             names = []
             for b in range(n):
                 name = f"stage{stage}_block{b}"
                 setattr(self, name, Bottleneck(
-                    inplanes, planes, stride=(1 if stage == 0 or b > 0 else 2), downsample=(b == 0)))
+                    inplanes, planes, stride=(1 if stage == 0 or b > 0 else 2),
+                    downsample=(b == 0), style=style, dcn=bool(dcn_stages[stage])))
                 inplanes = planes * 4
                 names.append(name)
             self.blocks.append(names)

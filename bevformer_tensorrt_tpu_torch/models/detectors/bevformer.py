@@ -24,7 +24,9 @@ class BEVFormer(nn.Module):
         if cfg.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype {cfg.dtype!r}: expected 'float32' or 'bfloat16'")
         self.cfg = cfg
-        self.img_backbone = ResNet(cfg.backbone_depth, cfg.backbone_out_indices, cfg.dcn_stages)
+        style = "caffe" if cfg.backbone_depth == 101 else "pytorch"
+        self.img_backbone = ResNet(cfg.backbone_depth, cfg.backbone_out_indices, cfg.dcn_stages,
+                                   style)
         in_ch = [256 * 2 ** i for i in cfg.backbone_out_indices]
         self.img_neck = FPN(in_ch, cfg.embed_dims, cfg.num_levels)
         self.pts_bbox_head = BEVFormerHead(cfg)

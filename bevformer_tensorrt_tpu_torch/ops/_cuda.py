@@ -18,7 +18,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = CSRC / "build"
-KERNELS = ("msda", "flash_attn")
+KERNELS = ("msda", "flash_attn", "dcn")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -1,9 +1,9 @@
 """Where a BEVFormer frame's time goes on the card.
 
-    python -m bevformer_tensorrt_tpu_torch.tools.profile_frame [--dtype float32]
-        [--frames 5] [--out FILE]
+    python -m bevformer_tensorrt_tpu_torch.tools.profile_frame [--model tiny]
+        [--dtype float32] [--frames 5] [--out FILE]
 
-Runs BEVFormer-tiny with seeded weights on synthetic frames of one scene through
+Runs BEVFormer tiny, small or base with seeded weights on synthetic frames of one scene through
 `BEVFormerEngine`: first the host-clock frame latency (each frame ends in a
 synchronise), then a `torch.profiler` window over the same number of
 frames.  Prints the device time per frame by kernel family and the top
@@ -23,7 +23,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ..configs.bevformer import bevformer_tiny
+from ..configs import bevformer as configs
 from .. import ops
 from ..runtime.engine import BEVFormerEngine
 from ..runtime.synthetic import synthetic_frames
@@ -31,6 +31,7 @@ from ..runtime.synthetic import synthetic_frames
 FAMILIES = (  # first match wins
     ("msda kernel", r"msda_kernel"),
     ("flash kernel", r"flash_kernel"),
+    ("dcn kernel", r"dcn_im2col_kernel"),
     ("memcpy", r"[Mm]emcpy|[Mm]emset"),
     # cuDNN's direct, implicit-GEMM and FFT convolutions; complex (cf32,
     # float2) kernels come only from the FFT convolutions in this model
@@ -62,6 +63,7 @@ def busy_ms(intervals):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="tiny", choices=("tiny", "small", "base"))
     ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--out", help="also write the breakdown as JSON to this file")
@@ -73,7 +75,7 @@ def main(argv=None):
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60,
                           check=True).stdout.strip().splitlines()[0]
-    cfg = bevformer_tiny(dtype=args.dtype)
+    cfg = getattr(configs, f"bevformer_{args.model}")(dtype=args.dtype)
     engine = BEVFormerEngine(cfg, seed=0)
     frames = synthetic_frames(cfg, np.random.default_rng(0), ["scene"] * (2 * args.frames + 2))
     for f in frames[:2]:  # warm-up
@@ -107,7 +109,7 @@ def main(argv=None):
     busy = busy_ms([(e.time_range.start, e.time_range.end) for e in kernels])
     device_ms = sum(by_family.values())
     res = dict(
-        card=card, model="tiny", dtype=args.dtype, frames=n,
+        card=card, model=args.model, dtype=args.dtype, frames=n,
         latency_ms_median=float(np.median(lat)), latency_ms=lat,
         profiled_wall_ms_per_frame=window_ms / n, device_ms_per_frame=device_ms,
         device_busy_share=busy / window_ms, kernels_per_frame=len(kernels) / n,
@@ -116,7 +118,7 @@ def main(argv=None):
         top_kernels=[dict(name=k[:120], ms_per_frame=v, calls_per_frame=count[k] / n)
                      for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]],
     )
-    print(f"{card}: tiny {args.dtype} frame latency median {res['latency_ms_median']:.3f} ms "
+    print(f"{card}: {args.model} {args.dtype} frame latency median {res['latency_ms_median']:.3f} ms "
           f"(host clock, {n} frames); profiled {res['profiled_wall_ms_per_frame']:.3f} ms/frame, "
           f"device kernels {device_ms:.3f} ms/frame, busy share {res['device_busy_share']:.3f}, "
           f"{res['kernels_per_frame']:.0f} kernels/frame")

@@ -5,7 +5,7 @@ The port names every submodule as the flax module of the same role, so a
 flax path `a/b/kernel` becomes the state_dict key `a.b.weight`:
 
   Dense kernel [in, out]   -> weight [out, in]
-  Conv kernel HWIO         -> weight OIHW
+  Conv kernel HWIO         -> weight OIHW (DeformConv2d's own kernel too)
   LayerNorm / FrozenBN scale -> weight;  bias -> bias
   FrozenBN batch_stats mean/var -> buffers mean/var
   embedding tables (bev/query embeddings, cams/level embeds,
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .models.backbones.resnet import DeformConv2d
 from .models.layers import FrozenBN, LearnedPositionalEncoding, QConv, QDense
 
 TABLES = ("bev_embedding", "query_embedding", "cams_embeds", "level_embeds",
@@ -80,10 +81,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         return lambda s: torch.randn(s, generator=generator) * std
 
     for name, m in model.named_modules():
-        if isinstance(m, (QDense, QConv)):
+        if isinstance(m, (QDense, QConv, DeformConv2d)):
             fan_in = m.weight[0].numel()
             fill(m.weight, normal(1.0 / math.sqrt(fan_in)))
-            if m.bias is not None:
+            if getattr(m, "bias", None) is not None:
                 cls_out = name.split(".")[-1] == "out" and ".cls_branch" in f".{name}"
                 m.bias.fill_(-4.595 if cls_out else 0.0)
         elif isinstance(m, (nn.LayerNorm, FrozenBN)):

@@ -88,13 +88,71 @@ def test_quant_is_not_ported():
         BEVFormer(bevformer_tiny(quant="int8"))
 
 
-def test_small_and_base_are_not_ported_yet():
-    """R101 with DCN belongs to the next slice: refused, not silently run."""
-    from bevformer_tensorrt_tpu_torch.configs.bevformer import bevformer_base, bevformer_small
+def shape_variables(jcfg):
+    """Flax variables of BEVFormer(jcfg), every leaf filled with ones."""
+    nq = jcfg.bev_h * jcfg.bev_w
+    args = (np.zeros((1, jcfg.num_cams, 3, jcfg.img_h, jcfg.img_w), np.float32),
+            np.zeros((nq, 1, jcfg.embed_dims), np.float32), np.float32(0.0),
+            np.zeros(18, np.float32), np.tile(np.eye(4, dtype=np.float32), (1, jcfg.num_cams, 1, 1)))
+    shapes = jax.eval_shape(lambda *a: JaxBEVFormer(jcfg).init(jax.random.PRNGKey(0), *a), *args)
+    return jax.tree_util.tree_map(lambda s: np.ones(s.shape, np.float32), dict(shapes))
 
-    for cfg in (bevformer_small(), bevformer_base()):
-        with pytest.raises(NotImplementedError, match="R50"):
-            BEVFormer(cfg)
+
+def test_every_flax_leaf_of_a_dcn_model_is_consumed():
+    """conv2 of a DCN block is a kernel of its own plus conv_offset's kernel
+    and bias: all three reach the port under the flax names."""
+    over = dict(dcn_stages=(False, False, True, True))
+    variables = shape_variables(jax_micro(msda_impl="jnp", **over))
+    n_leaves = len(jax.tree_util.tree_leaves(variables))
+    sd = params_from_jax(variables)
+    assert len(sd) == n_leaves
+    block = "img_backbone.stage2_block0.conv2"
+    assert tuple(sd[f"{block}.weight"].shape) == (256, 256, 3, 3)
+    assert tuple(sd[f"{block}.conv_offset.weight"].shape) == (27, 256, 3, 3)
+    assert tuple(sd[f"{block}.conv_offset.bias"].shape) == (27,)
+    model = BEVFormer(bevformer_micro(**over))
+    model.load_state_dict(sd, strict=True)
+    assert len(model.state_dict()) == n_leaves
+
+
+def test_small_and_base_build():
+    """Both configs construct at full width (R101 caffe style, DCN on stages
+    3-4), load the JAX package's variables strictly at reduced depth and
+    size, and still refuse `quant`."""
+    from bevformer_tensorrt_tpu.configs import bevformer as jax_configs
+    from bevformer_tensorrt_tpu_torch.configs import bevformer as configs
+    from bevformer_tensorrt_tpu_torch.models.backbones.resnet import DeformConv2d
+
+    reduced = dict(encoder_layers=1, decoder_layers=1, img_h=64, img_w=96, bev_h=10, bev_w=10,
+                   num_query=20)
+    for fn, levels, convs in (("bevformer_small", 1, 2), ("bevformer_base", 4, 7)):
+        model = BEVFormer(getattr(configs, fn)())
+        assert sum(isinstance(m, DeformConv2d) for m in model.modules()) == 26
+        assert model.img_backbone.stage1_block0.conv1.stride == (2, 2)  # caffe
+        assert model.pts_bbox_head.transformer.level_embeds.shape == (levels, 256)
+        assert len(list(model.img_neck.children())) == convs
+        del model
+        variables = shape_variables(getattr(jax_configs, fn)(msda_impl="jnp", **reduced))
+        sd = params_from_jax(variables)
+        small = BEVFormer(getattr(configs, fn)(**reduced))
+        small.load_state_dict(sd, strict=True)
+        assert len(sd) == len(jax.tree_util.tree_leaves(variables))
+        with pytest.raises(NotImplementedError):
+            BEVFormer(getattr(configs, fn)(quant="int8"))
+
+
+def test_seeded_init_fills_deform_conv():
+    """DeformConv2d's own weight gets the LeCun-normal draw (it is created
+    uninitialised), deterministically, and the R50 draws do not depend on it."""
+    over = dict(dcn_stages=(False, False, True, True))
+    a = init_weights(BEVFormer(bevformer_micro(**over)), torch.Generator().manual_seed(5))
+    b = init_weights(BEVFormer(bevformer_micro(**over)), torch.Generator().manual_seed(5))
+    w = a.img_backbone.stage3_block2.conv2.weight
+    assert torch.equal(w, b.img_backbone.stage3_block2.conv2.weight)
+    assert torch.isfinite(w).all()
+    assert abs(float(w.detach().std()) * (512 * 9) ** 0.5 - 1.0) < 0.05
+    plain = init_weights(BEVFormer(bevformer_micro()), torch.Generator().manual_seed(5))
+    assert torch.equal(a.img_backbone.stem_conv.weight, plain.img_backbone.stem_conv.weight)
 
 
 def test_seeded_init_is_deterministic():
@@ -118,6 +176,8 @@ def test_seeded_init_is_deterministic():
     ("void cutlass__5x_cudnn::Kernel<cutlass_tensorop_bf16_s16816fprop_optimized_bf16>",
      "convolution"),
     ("void (anonymous namespace)::msda_kernel<float, 1>(float const*)", "msda kernel"),
+    ("void (anonymous namespace)::dcn_im2col_kernel<float>(float const*, float const*)",
+     "dcn kernel"),
     ("Memcpy HtoD (Pageable -> Device)", "memcpy"),
 ])
 def test_profile_kernel_families(name, fam):
@@ -137,3 +197,28 @@ def test_nms_free_decode_matches_jax(rng):
         np.testing.assert_array_equal(g["labels_3d"], w["labels_3d"])
         assert rel(g["scores_3d"], w["scores_3d"]) < 1e-6
         assert rel(g["boxes_3d"], w["boxes_3d"]) < 1e-6
+
+
+def test_plain_versions_swap_and_restore():
+    """The measuring aid of tools/path_diff.py swaps the named wrappers for
+    their plain versions inside the block only, also when the block raises."""
+    from bevformer_tensorrt_tpu_torch.ops import attention, dcn, msda
+    from bevformer_tensorrt_tpu_torch.tools.path_diff import compare, plain_versions
+
+    wrappers = (msda.multi_scale_deformable_attn, attention.flash_attention,
+                dcn.modulated_deform_conv2d)
+    with plain_versions(["dcn"]):
+        assert dcn.modulated_deform_conv2d is dcn.modulated_deform_conv2d_plain
+        assert msda.multi_scale_deformable_attn is wrappers[0]
+    with pytest.raises(RuntimeError):
+        with plain_versions():
+            assert attention.flash_attention is attention.qkv_plain
+            raise RuntimeError("inside")
+    assert (msda.multi_scale_deformable_attn, attention.flash_attention,
+            dcn.modulated_deform_conv2d) == wrappers
+    frame = (torch.ones(4, 1, 8), torch.ones(2, 1, 5, 10), torch.ones(2, 1, 5, 10))
+    other = (frame[0] * 1.5, frame[1], frame[2] * torch.tensor([1.0, 3.0]).reshape(2, 1, 1, 1))
+    err = compare([other], [frame])
+    assert err["bev_embed"]["max"] == pytest.approx(0.5)
+    assert [e["max"] for e in err["classes"]] == [0.0, 0.0]
+    assert [e["max"] for e in err["coords"]] == pytest.approx([0.0, 2.0])

@@ -8,22 +8,15 @@ scene, the second is temporal (rotated and shifted prev_bev).  The port runs
 bev_embed, classes and coords hold a relative error of 1e-4, the bar of
 test_full_model_parity.py.
 """
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from bevformer_tensorrt_tpu.configs import bevformer as jax_configs
-from bevformer_tensorrt_tpu.models.detectors.bevformer import BEVFormer as JaxBEVFormer
-from bevformer_tensorrt_tpu.runtime.engine import BEVFormerEngine as JaxEngine
-from bevformer_tensorrt_tpu_torch.configs import bevformer as configs
 from bevformer_tensorrt_tpu_torch.runtime.engine import BEVFormerEngine
-from bevformer_tensorrt_tpu_torch.runtime.synthetic import camera_rig
 from bevformer_tensorrt_tpu_torch.weights import params_from_jax
-from torch_port_helpers import random_variables, rel
+from torch_port_helpers import build_engine_case, check_two_frames, rel
 
 torch.set_num_threads(2)
 
@@ -35,49 +28,14 @@ CONFIGS = {
 }
 
 
-def frames(cfg, rng):
-    l2i = camera_rig(cfg.num_cams, cfg.img_h, cfg.img_w, rng)
-    can_bus = rng.standard_normal(cfg.can_bus_dims).astype(np.float32)
-    out = []
-    for _ in range(2):
-        out.append(dict(
-            image=rng.standard_normal((1, cfg.num_cams, 3, cfg.img_h, cfg.img_w)).astype(np.float32),
-            can_bus=can_bus.copy(), lidar2img=l2i, scene_token="scene-0"))
-        can_bus = can_bus.copy()
-        can_bus[:3] += rng.normal(0, 1.0, 3).astype(np.float32)   # ego moves ...
-        can_bus[-2:] += np.float32(0.1)                          # ... and turns
-    return out
-
-
-@functools.lru_cache(maxsize=None)
 def build_case(name):
     fn, over = CONFIGS[name]
-    jcfg = getattr(jax_configs, fn)(msda_impl="jnp", **over)
-    cfg = getattr(configs, fn)(**over)
-    rng = np.random.default_rng(7)
-    fr = frames(cfg, rng)
-    nq = cfg.bev_h * cfg.bev_w
-    model = JaxBEVFormer(jcfg)
-    variables = random_variables(
-        model, rng, fr[0]["image"], np.zeros((nq, 1, cfg.embed_dims), np.float32),
-        np.float32(0.0), fr[0]["can_bus"], fr[0]["lidar2img"])
-    return cfg, jcfg, model, variables, fr
+    return build_engine_case(fn, tuple(over.items()))
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_two_frames_match_jax(name):
-    cfg, jcfg, model, variables, fr = build_case(name)
-    jax_engine = JaxEngine(model, variables, jcfg, donate_prev_bev=False)
-    engine = BEVFormerEngine(cfg, state_dict=params_from_jax(variables), device="cpu")
-    for i, f in enumerate(fr):
-        want = jax_engine.infer_frame(**f)
-        got = engine.infer_frame(**f)
-        assert engine.state.scene_token == "scene-0"
-        pairs = [("bev_embed", engine.state.prev_bev, jax_engine.state.prev_bev),
-                 ("classes", got[0], want[0]), ("coords", got[1], want[1])]
-        for what, g, w in pairs:
-            assert tuple(g.shape) == np.shape(w), (name, i, what)
-            assert rel(g.numpy(), np.asarray(w)) < TOL, (name, i, what)
+    check_two_frames(build_case(name), TOL, name)
 
 
 def test_use_prev_bev_mux():

@@ -2,7 +2,9 @@
 
 Each flax module gets seeded numpy weights, which reach the port module
 through `params_from_jax`; both see the same numpy inputs and must agree to
-a relative error of 1e-5.
+a relative error of 1e-5 (the DCN backbone, many layers deep, 1e-4).  The
+flax backbone and neck are NHWC and the port's are NCHW: the same numpy image
+reaches each in its own layout and the outputs are compared as NCHW.
 """
 import flax.linen as fnn
 import jax.numpy as jnp
@@ -11,6 +13,7 @@ import pytest
 import torch
 
 from bevformer_tensorrt_tpu.configs.bevformer import bevformer_micro as jax_micro
+from bevformer_tensorrt_tpu.models.backbones import resnet as jax_resnet
 from bevformer_tensorrt_tpu.models.heads.bevformer_head import RegBranch as JaxRegBranch
 from bevformer_tensorrt_tpu.models.modules import attention as jax_attn
 from bevformer_tensorrt_tpu.models.modules.decoder import (
@@ -23,16 +26,19 @@ from bevformer_tensorrt_tpu.models.modules.encoder import (
 from bevformer_tensorrt_tpu.models.modules.transformer import (
     can_bus_to_shift as jax_can_bus_to_shift,
 )
+from bevformer_tensorrt_tpu.models.necks.fpn import FPN as JaxFPN
 from bevformer_tensorrt_tpu.ops import rotate as jax_rotate
 from bevformer_tensorrt_tpu_torch.configs.bevformer import bevformer_micro
+from bevformer_tensorrt_tpu_torch.models.backbones import resnet as port_resnet
 from bevformer_tensorrt_tpu_torch.models.heads.bevformer_head import RegBranch
 from bevformer_tensorrt_tpu_torch.models.modules import attention as port_attn
 from bevformer_tensorrt_tpu_torch.models.modules.decoder import DetectionTransformerDecoder
 from bevformer_tensorrt_tpu_torch.models.modules.encoder import point_sampling
 from bevformer_tensorrt_tpu_torch.models.modules.transformer import can_bus_to_shift
+from bevformer_tensorrt_tpu_torch.models.necks.fpn import FPN
 from bevformer_tensorrt_tpu_torch.ops import rotate
 from bevformer_tensorrt_tpu_torch.runtime.synthetic import camera_rig
-from torch_port_helpers import load_port, random_variables, rel
+from torch_port_helpers import load_port, random_variables, rel, run_pair_nchw
 
 torch.set_num_threads(2)
 
@@ -197,3 +203,68 @@ def test_decoder(rng):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         assert rel(g.numpy(), w) < TOL
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_deform_conv2d(stride, rng):
+    x = rng.standard_normal((2, 16, 9, 12)).astype(np.float32)
+    want, got = run_pair_nchw(
+        jax_resnet.DeformConv2d(features=24, strides=(stride, stride)),
+        port_resnet.DeformConv2d(16, 24, stride), rng, x)
+    assert got[0].shape == want[0].shape == (2, 24, (9 - 1) // stride + 1, (12 - 1) // stride + 1)
+    assert rel(got[0], want[0]) < TOL
+
+
+@pytest.mark.parametrize("style,dcn,stride", [
+    ("caffe", True, 2), ("caffe", True, 1), ("caffe", False, 2), ("pytorch", True, 2)])
+def test_bottleneck_styles(style, dcn, stride, rng):
+    """caffe puts the stride on the first 1x1, so its DCN runs at stride 1;
+    pytorch style gives the DCN (and its conv_offset) the stride."""
+    x = rng.standard_normal((2, 32, 10, 13)).astype(np.float32)
+    want, got = run_pair_nchw(
+        jax_resnet.Bottleneck(planes=8, strides=(stride, stride), downsample=True, style=style,
+                              dcn=dcn),
+        port_resnet.Bottleneck(32, 8, stride, True, style, dcn), rng, x)
+    assert rel(got[0], want[0]) < TOL
+
+
+def test_backbone_r50_caffe_dcn(rng):
+    """R50, caffe style, DCN on stages 3-4, three outputs, as base's R101
+    is configured (the R101 itself is in test_torch_r101.py)."""
+    x = rng.standard_normal((1, 3, 64, 96)).astype(np.float32)
+    kw = dict(depth=50, out_indices=(1, 2, 3), dcn_stages=(False, False, True, True),
+              style="caffe")
+    want, got = run_pair_nchw(jax_resnet.ResNet(**kw), port_resnet.ResNet(**kw), rng, x)
+    assert [g.shape[1:] for g in got] == [(512, 8, 12), (1024, 4, 6), (2048, 2, 3)]
+    for g, w in zip(got, want):
+        assert rel(g, w) < 1e-4
+
+
+class JaxFPN4(fnn.Module):
+    @fnn.compact
+    def __call__(self, c3, c4, c5):
+        return JaxFPN(out_channels=16, num_outs=4, name="fpn")([c3, c4, c5])
+
+
+class FPN4(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.fpn = FPN([8, 16, 32], 16, 4)
+
+    def forward(self, c3, c4, c5):
+        return self.fpn([c3, c4, c5])
+
+
+def test_fpn_three_in_four_out_odd(rng):
+    """Base's neck: three inputs, four outputs; the sizes follow base's
+    116x200 -> 58x100 -> 29x50 -> 15x25 in kind: odd laterals (17 rows
+    over 9 over 5) crop the upsampled maps, and the extra stride-2 conv takes
+    an odd step (5 -> 3, as base's 29 -> 15)."""
+    c3 = rng.standard_normal((2, 8, 17, 20)).astype(np.float32)
+    c4 = rng.standard_normal((2, 16, 9, 10)).astype(np.float32)
+    c5 = rng.standard_normal((2, 32, 5, 5)).astype(np.float32)
+    want, got = run_pair_nchw(JaxFPN4(), FPN4(), rng, c3, c4, c5)
+    assert [g.shape for g in got] == [(2, 16, 17, 20), (2, 16, 9, 10), (2, 16, 5, 5),
+                                      (2, 16, 3, 3)]
+    for g, w in zip(got, want):
+        assert rel(g, w) < TOL
