@@ -25,6 +25,15 @@
 // ch 32); corners outside the image are skipped (a warp-uniform branch).
 // Accumulation is f32; the output is written once in the value's dtype.
 // The kernel allocates nothing and launches on the caller's stream.
+//
+// int8 value tables (msda_int8_forward) replace the `packed="int8"` mode of
+// the same TPU kernel (ops/msda.py::_pack_int8_quarters, the scale of
+// _pack_tables_from_vt, the dequantization folded at _prep_taps_qminor):
+// the value arrives as int8 rows [bs, keys, heads, ch] with one float32
+// scale per (batch, head), the same kernel accumulates sum m * q in f32 from
+// rows a quarter as wide (32 bytes at ch 32), and the scale multiplies the
+// sum once at the end.  The TPU's u32 quads, channel quarters and bf16
+// weights are Mosaic layout and do not carry over: weights stay float32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,6 +47,7 @@ constexpr int kWarpsPerBlock = 8;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
@@ -56,9 +66,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 // value [bs, nk, heads, ch]; ref [bs, nq, ppg*2] f32; off [bs, nq, heads, L*P*2];
 // attn [bs, nq, heads, L*P]; levels [L, 3] int32 = (h, w, start);
 // out [bs, nq, heads*ch].  CPL = channels per lane = ceil(ch / 32).
-template <typename T, int CPL>
+// V is the value's type: T, or int8_t with vscale [bs, heads] (else null).
+template <typename V, typename T, int CPL>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-msda_kernel(const T* __restrict__ value, const float* __restrict__ ref,
+msda_kernel(const V* __restrict__ value, const float* __restrict__ vscale,
+            const float* __restrict__ ref,
             const T* __restrict__ off, const T* __restrict__ attn,
             const int* __restrict__ levels, T* __restrict__ out,
             int bs, int nk, int nq, int heads, int ch, int L, int P, int ppg) {
@@ -83,7 +95,7 @@ msda_kernel(const T* __restrict__ value, const float* __restrict__ ref,
   float acc[CPL];
 #pragma unroll
   for (int k = 0; k < CPL; ++k) acc[k] = 0.f;
-  const T* vb = value + (b * nk * heads + h) * (long long)ch;
+  const V* vb = value + (b * nk * heads + h) * (long long)ch;
 
   for (int base = 0; base < LP; base += 32) {
     // lane i owns point base+i: point order within a level is (P/ppg, ppg),
@@ -119,7 +131,7 @@ msda_kernel(const T* __restrict__ value, const float* __restrict__ ref,
       for (int c4 = 0; c4 < 4; ++c4) {
         const int cx = ix + (c4 & 1), cy = iy + (c4 >> 1);
         if (cx < 0 || cx >= wl || cy < 0 || cy >= hl) continue;  // warp-uniform
-        const T* row = vb + (long long)(start + cy * wl + cx) * heads * ch;
+        const V* row = vb + (long long)(start + cy * wl + cx) * heads * ch;
 #pragma unroll
         for (int k = 0; k < CPL; ++k) {
           const int c = lane + 32 * k;
@@ -128,16 +140,18 @@ msda_kernel(const T* __restrict__ value, const float* __restrict__ ref,
       }
     }
   }
+  const float vs = vscale != nullptr ? vscale[b * heads + h] : 1.f;
   T* op = out + w * ch;
 #pragma unroll
   for (int k = 0; k < CPL; ++k) {
     const int c = lane + 32 * k;
-    if (c < ch) op[c] = from_f<T>(acc[k]);
+    if (c < ch) op[c] = from_f<T>(vscale != nullptr ? acc[k] * vs : acc[k]);
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* value, const void* ref, const void* off, const void* attn,
+template <typename V, typename T>
+cudaError_t launch(const void* value, const void* vscale, const void* ref, const void* off,
+                   const void* attn,
                    const void* levels, void* out, int bs, int nk, int nq, int heads, int ch,
                    int L, int P, int ppg, cudaStream_t stream) {
   const long long warps = (long long)bs * nq * heads;
@@ -145,9 +159,9 @@ cudaError_t launch(const void* value, const void* ref, const void* off, const vo
   const dim3 block(32 * kWarpsPerBlock);
   const int cpl = (ch + 31) / 32;
 #define MSDA_LAUNCH(N)                                                                  \
-  msda_kernel<T, N><<<grid, block, 0, stream>>>(                                        \
-      (const T*)value, (const float*)ref, (const T*)off, (const T*)attn,                \
-      (const int*)levels, (T*)out, bs, nk, nq, heads, ch, L, P, ppg)
+  msda_kernel<V, T, N><<<grid, block, 0, stream>>>(                                     \
+      (const V*)value, (const float*)vscale, (const float*)ref, (const T*)off,          \
+      (const T*)attn, (const int*)levels, (T*)out, bs, nk, nq, heads, ch, L, P, ppg)
   if (cpl == 1) MSDA_LAUNCH(1);
   else if (cpl == 2) MSDA_LAUNCH(2);
   else if (cpl <= 4) MSDA_LAUNCH(4);
@@ -166,11 +180,27 @@ int msda_forward(const void* value, const void* ref, const void* off, const void
                  int L, int P, int ppg, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return (int)launch<float>(value, ref, off, attn, levels, out, bs, nk, nq, heads, ch, L, P,
-                              ppg, st);
+    return (int)launch<float, float>(value, nullptr, ref, off, attn, levels, out, bs, nk, nq,
+                                     heads, ch, L, P, ppg, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(value, ref, off, attn, levels, out, bs, nk, nq, heads,
-                                      ch, L, P, ppg, st);
+    return (int)launch<__nv_bfloat16, __nv_bfloat16>(value, nullptr, ref, off, attn, levels,
+                                                     out, bs, nk, nq, heads, ch, L, P, ppg, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// int8 value rows [bs, nk, heads, ch] with vscale [bs, heads] f32; dtype is
+// that of the offsets, logits and output.
+int msda_int8_forward(const void* value, const void* vscale, const void* ref, const void* off,
+                      const void* attn, const void* levels, void* out, int bs, int nk, int nq,
+                      int heads, int ch, int L, int P, int ppg, int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vscale == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)launch<int8_t, float>(value, vscale, ref, off, attn, levels, out, bs, nk, nq,
+                                      heads, ch, L, P, ppg, st);
+  if (dtype == 1)
+    return (int)launch<int8_t, __nv_bfloat16>(value, vscale, ref, off, attn, levels, out, bs,
+                                              nk, nq, heads, ch, L, P, ppg, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,6 +4,10 @@
 One forward of (image, prev_bev, use_prev_bev, can_bus, lidar2img) ->
 (bev_embed, outputs_classes, outputs_coords) with bs = 1.  The recurrent
 prev_bev / can_bus state lives in `runtime/engine.py`.
+
+`cfg.quant` selects the quantized tiers (True: QDQ simulation; "int8": real
+int8 execution) and `cfg.quant_exclude` the mixed-precision policy, which is
+resolved into every site once, here, when the model is built.
 """
 from __future__ import annotations
 
@@ -11,6 +15,7 @@ import torch
 import torch.nn as nn
 
 from ...configs.bevformer import BEVFormerConfig
+from ...quant.policy import set_quant_exclude
 from ..backbones.resnet import ResNet
 from ..heads.bevformer_head import BEVFormerHead
 from ..necks.fpn import FPN
@@ -19,17 +24,18 @@ from ..necks.fpn import FPN
 class BEVFormer(nn.Module):
     def __init__(self, cfg: BEVFormerConfig):
         super().__init__()
-        if cfg.quant:
-            raise NotImplementedError("quantized BEVFormer (quant set) is not ported yet")
+        if cfg.quant not in (False, True, "int8"):
+            raise ValueError(f"quant {cfg.quant!r}: expected False, True or 'int8'")
         if cfg.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype {cfg.dtype!r}: expected 'float32' or 'bfloat16'")
         self.cfg = cfg
         style = "caffe" if cfg.backbone_depth == 101 else "pytorch"
         self.img_backbone = ResNet(cfg.backbone_depth, cfg.backbone_out_indices, cfg.dcn_stages,
-                                   style)
+                                   style, quant=cfg.quant)
         in_ch = [256 * 2 ** i for i in cfg.backbone_out_indices]
-        self.img_neck = FPN(in_ch, cfg.embed_dims, cfg.num_levels)
+        self.img_neck = FPN(in_ch, cfg.embed_dims, cfg.num_levels, quant=cfg.quant)
         self.pts_bbox_head = BEVFormerHead(cfg)
+        set_quant_exclude(self, cfg.quant_exclude)
 
     def forward(self, image, prev_bev, use_prev_bev, can_bus, lidar2img):
         """

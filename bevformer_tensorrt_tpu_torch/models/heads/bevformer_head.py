@@ -16,11 +16,11 @@ class ClsBranch(nn.Module):
     def __init__(self, cfg: BEVFormerConfig):
         super().__init__()
         C = cfg.embed_dims
-        self.fc1 = QDense(C, C)
+        self.fc1 = QDense(C, C, quant=cfg.quant)
         self.ln1 = nn.LayerNorm(C, eps=1e-5)
-        self.fc2 = QDense(C, C)
+        self.fc2 = QDense(C, C, quant=cfg.quant)
         self.ln2 = nn.LayerNorm(C, eps=1e-5)
-        self.out = QDense(C, cfg.num_classes)
+        self.out = QDense(C, cfg.num_classes, quant=cfg.quant)
 
     def forward(self, x):
         x = F.relu(self.ln1(self.fc1(x)))
@@ -32,9 +32,9 @@ class RegBranch(nn.Module):
     def __init__(self, cfg: BEVFormerConfig):
         super().__init__()
         C = cfg.embed_dims
-        self.fc1 = QDense(C, C)
-        self.fc2 = QDense(C, C)
-        self.out = QDense(C, cfg.code_size)
+        self.fc1 = QDense(C, C, quant=cfg.quant)
+        self.fc2 = QDense(C, C, quant=cfg.quant)
+        self.out = QDense(C, cfg.code_size, quant=cfg.quant)
 
     def forward(self, x):
         return self.out(F.relu(self.fc2(F.relu(self.fc1(x)))))

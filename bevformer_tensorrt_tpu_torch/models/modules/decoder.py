@@ -18,11 +18,12 @@ class DecoderLayer(nn.Module):
     def __init__(self, cfg: BEVFormerConfig):
         super().__init__()
         C = cfg.embed_dims
-        self.self_attn = MultiheadAttention(C, cfg.num_heads)
+        self.self_attn = MultiheadAttention(C, cfg.num_heads, quant=cfg.quant)
         self.norm1 = LayerNorm(C)
-        self.cross_attn = CustomMSDeformableAttention(C, cfg.num_heads, 1, cfg.num_points_decoder)
+        self.cross_attn = CustomMSDeformableAttention(C, cfg.num_heads, 1,
+                                                      cfg.num_points_decoder, quant=cfg.quant)
         self.norm2 = LayerNorm(C)
-        self.ffn = FFN(C, cfg.ffn_dims)
+        self.ffn = FFN(C, cfg.ffn_dims, quant=cfg.quant)
         self.norm3 = LayerNorm(C)
 
     def forward(self, query, query_pos, value, reference_points_2d, spatial_shapes):

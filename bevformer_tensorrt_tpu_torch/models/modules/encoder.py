@@ -111,12 +111,14 @@ class BEVFormerLayer(nn.Module):
         super().__init__()
         C = cfg.embed_dims
         self.bev_shape = ((cfg.bev_h, cfg.bev_w),)
-        self.self_attn = TemporalSelfAttention(C, cfg.num_heads, 1, cfg.num_points_self)
+        self.self_attn = TemporalSelfAttention(C, cfg.num_heads, 1, cfg.num_points_self,
+                                               quant=cfg.quant)
         self.norm1 = LayerNorm(C)
         self.cross_attn = SpatialCrossAttention(
-            C, cfg.num_cams, cfg.num_heads, cfg.num_levels, cfg.num_points_cross, cfg.cam_budget)
+            C, cfg.num_cams, cfg.num_heads, cfg.num_levels, cfg.num_points_cross, cfg.cam_budget,
+            quant=cfg.quant)
         self.norm2 = LayerNorm(C)
-        self.ffn = FFN(C, cfg.ffn_dims)
+        self.ffn = FFN(C, cfg.ffn_dims, quant=cfg.quant)
         self.norm3 = LayerNorm(C)
 
     def forward(self, query, value, bev_pos, hybrid_ref_2d, reference_points_cam, bev_mask,

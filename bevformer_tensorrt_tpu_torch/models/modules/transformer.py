@@ -40,13 +40,13 @@ class PerceptionTransformer(nn.Module):
         super().__init__()
         self.cfg = cfg
         C = cfg.embed_dims
-        self.can_bus_fc1 = QDense(cfg.can_bus_dims, C // 2)
-        self.can_bus_fc2 = QDense(C // 2, C)
+        self.can_bus_fc1 = QDense(cfg.can_bus_dims, C // 2, quant=cfg.quant)
+        self.can_bus_fc2 = QDense(C // 2, C, quant=cfg.quant)
         self.can_bus_norm = nn.LayerNorm(C, eps=1e-5)
         self.cams_embeds = nn.Parameter(torch.zeros(cfg.num_cams, C))
         self.level_embeds = nn.Parameter(torch.zeros(cfg.num_levels, C))
         self.encoder = BEVFormerEncoder(cfg)
-        self.reference_points = QDense(C, 3)
+        self.reference_points = QDense(C, 3, quant=cfg.quant)
         self.decoder = DetectionTransformerDecoder(cfg)
 
     def forward(self, mlvl_feats: List[torch.Tensor], bev_queries, object_query_embed, bev_pos,

@@ -15,16 +15,17 @@ from ..layers import QConv
 
 class FPN(nn.Module):
     def __init__(self, in_channels: Sequence[int], out_channels: int = 256,
-                 num_outs: int = 4, relu_before_extra_convs: bool = True):
+                 num_outs: int = 4, relu_before_extra_convs: bool = True, quant=False):
         super().__init__()
         self.n_in = len(in_channels)
         self.num_outs = num_outs
         self.relu_before_extra_convs = relu_before_extra_convs
         for i, c in enumerate(in_channels):
-            setattr(self, f"lateral{i}", QConv(c, out_channels, 1, 1, 0))
+            setattr(self, f"lateral{i}", QConv(c, out_channels, 1, 1, 0, quant=quant))
         for i in range(num_outs):
             stride = 1 if i < self.n_in else 2
-            setattr(self, f"fpn{i}", QConv(out_channels, out_channels, 3, stride, 1))
+            setattr(self, f"fpn{i}", QConv(out_channels, out_channels, 3, stride, 1,
+                                           quant=quant))
 
     def forward(self, inputs: List) -> List:
         laterals = [getattr(self, f"lateral{i}")(x) for i, x in enumerate(inputs)]

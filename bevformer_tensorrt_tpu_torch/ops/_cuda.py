@@ -18,7 +18,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = CSRC / "build"
-KERNELS = ("msda", "flash_attn", "dcn")
+KERNELS = ("msda", "flash_attn", "dcn", "int8_gemm", "flash_attn_int8")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

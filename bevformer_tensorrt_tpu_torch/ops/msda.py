@@ -8,6 +8,14 @@ and returns the weighted sum.
 `multi_scale_deformable_attn` is the public function.  For CPU tensors it
 runs `multi_scale_deformable_attn_plain`; for CUDA tensors it launches the
 kernel of `csrc/msda.cu` or raises.
+
+`multi_scale_deformable_attn_int8` is the same op from an int8 value table
+(the JAX package's `packed="int8"`): the value is quantized with one dynamic
+scale per (batch, head) by `quantize_value_table`, the kernel gathers int8
+rows, and the scale multiplies the weighted sum once.  By linearity that is
+the floating-point op on the dequantized value, which is what its plain
+version computes.  The JAX kernel also rounds its combined weights to
+bfloat16, which the port does not: the two differ by up to 2^-8 of a weight.
 """
 from __future__ import annotations
 
@@ -96,16 +104,43 @@ def _level_table(spatial_shapes: Shapes, device) -> torch.Tensor:
     return t
 
 
+def quantize_value_table(value):
+    """value [bs, keys, heads, ch] -> (int8 of the same shape, scale
+    [bs, heads] float32): `s = max(amax over the head's keys and channels,
+    1e-12) / 127`, `q = clip(round(v / s), -127, 127)`."""
+    v = value.float()
+    scale = v.abs().amax(dim=(1, 3)).clamp_min(1e-12) / 127.0
+    q = torch.round(v / scale[:, None, :, None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def multi_scale_deformable_attn_int8_plain(value, reference_points, sampling_offsets,
+                                           attention_weights, spatial_shapes: Shapes):
+    """Plain PyTorch version of the int8-table op: the floating-point plain
+    path on the dequantized int8 value.  Returns value.dtype."""
+    q, scale = quantize_value_table(value)
+    deq = q.float() * scale[:, None, :, None]
+    return multi_scale_deformable_attn_plain(
+        deq, reference_points, sampling_offsets, attention_weights, spatial_shapes
+    ).to(value.dtype)
+
+
 def _msda_lib():
     lib = _cuda.load("msda")
     if lib.msda_forward.argtypes is None:
         lib.msda_forward.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         lib.msda_forward.restype = ctypes.c_int
+        lib.msda_int8_forward.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                                          + [ctypes.c_void_p])
+        lib.msda_int8_forward.restype = ctypes.c_int
     return lib
 
 
 def _msda_cuda(value, reference_points, sampling_offsets, attention_weights,
-               spatial_shapes: Shapes):
+               spatial_shapes: Shapes, int8_table=None):
+    """Launch the kernel.  `int8_table` is None for the floating-point
+    table, True to quantize `value` here, or a (q, scale) pair made by
+    `quantize_value_table(value)` ahead of time."""
     if value.dtype not in _DTYPES:
         raise TypeError(f"msda kernel: value dtype {value.dtype} is not float32 or bfloat16")
     if sampling_offsets.dtype != value.dtype or attention_weights.dtype != value.dtype:
@@ -141,12 +176,24 @@ def _msda_cuda(value, reference_points, sampling_offsets, attention_weights,
     lib = _msda_lib()
     levels = _level_table(spatial_shapes, value.device)
     stream = torch.cuda.current_stream(value.device).cuda_stream
-    err = lib.msda_forward(
-        value.data_ptr(), reference_points.data_ptr(), sampling_offsets.data_ptr(),
-        attention_weights.data_ptr(), levels.data_ptr(), out.data_ptr(),
-        bs, nk, nq, heads, ch, L, P, ppg, _DTYPES[value.dtype], stream)
-    _cuda.check(lib, err, "msda kernel launch")
-    multi_scale_deformable_attn.launches += 1
+    tail = (reference_points.data_ptr(), sampling_offsets.data_ptr(),
+            attention_weights.data_ptr(), levels.data_ptr(), out.data_ptr(),
+            bs, nk, nq, heads, ch, L, P, ppg, _DTYPES[value.dtype], stream)
+    if int8_table is not None:
+        q, scale = quantize_value_table(value) if int8_table is True else int8_table
+        if (q.dtype != torch.int8 or q.shape != value.shape or not q.is_contiguous()
+                or scale.dtype != torch.float32 or tuple(scale.shape) != (bs, heads)
+                or not scale.is_contiguous() or q.device != value.device
+                or scale.device != value.device):
+            raise ValueError("msda int8 kernel: the table must be int8 of the value's shape "
+                             "with a float32 scale [bs, heads], both on the value's device")
+        err = lib.msda_int8_forward(q.data_ptr(), scale.data_ptr(), *tail)
+        _cuda.check(lib, err, "msda int8 kernel launch")
+        multi_scale_deformable_attn_int8.launches += 1
+    else:
+        err = lib.msda_forward(value.data_ptr(), *tail)
+        _cuda.check(lib, err, "msda kernel launch")
+        multi_scale_deformable_attn.launches += 1
     return out
 
 
@@ -174,3 +221,22 @@ def multi_scale_deformable_attn(value, reference_points, sampling_offsets,
 
 
 multi_scale_deformable_attn.launches = 0
+
+
+def multi_scale_deformable_attn_int8(value, reference_points, sampling_offsets,
+                                     attention_weights, spatial_shapes: Shapes, table=None):
+    """`multi_scale_deformable_attn` from an int8 value table: the value
+    (float32 or bfloat16, same arguments) is quantized per (batch, head)
+    here, and the kernel gathers the int8 rows.  `table` takes the
+    (int8, scale) pair of `quantize_value_table(value)` made ahead of time
+    (to time the kernel apart from the quantization); CUDA only."""
+    if value.is_cuda:
+        return _msda_cuda(value, reference_points, sampling_offsets, attention_weights,
+                          tuple(spatial_shapes), int8_table=True if table is None else table)
+    if value.device.type != "cpu":
+        raise ValueError(f"msda: unsupported device {value.device}")
+    return multi_scale_deformable_attn_int8_plain(value, reference_points, sampling_offsets,
+                                                  attention_weights, spatial_shapes)
+
+
+multi_scale_deformable_attn_int8.launches = 0

@@ -5,6 +5,11 @@ state machine (port of `bevformer_tensorrt_tpu/runtime/engine.py`).
   * can_bus[:3] / can_bus[-1] become deltas vs the previous frame
   * prev_bev <- bev_embed, kept on the device; only the detections are
     read back by the caller.
+
+A quantized model (`cfg.quant`) is served like any other once its scales
+are in place: from the state_dict, from
+`quant.fold.attach_quant_scales(engine.model, scales)`, or from `calibrate`
+over a few frames.
 """
 from __future__ import annotations
 
@@ -18,6 +23,9 @@ import torch
 from ..configs.bevformer import BEVFormerConfig
 from ..models.detectors.bevformer import BEVFormer
 from ..models.modules.encoder import cam_budget_overflow
+from ..quant.calibrate import calibrate as calibrate_sites
+from ..quant.fold import attach_quant_scales
+from ..quant.observers import CalibrationResult
 from ..weights import init_weights
 
 
@@ -123,6 +131,19 @@ class BEVFormerEngine:
             self._tensor(delta_can_bus), self._tensor(lidar2img))
         self.state.prev_bev = bev_embed
         return classes, coords
+
+    def calibrate(self, frames, method: str = "entropy",
+                  percentile: float = 99.99) -> CalibrationResult:
+        """Two-pass calibration of the model's QDQ sites over `frames`
+        (keyword sets of `infer_frame`), each pass from a fresh temporal
+        state; the chosen scales are attached (and, for int8 layers, the
+        weights folded) and returned.  Leaves the temporal state reset."""
+        result = calibrate_sites(
+            lambda f: self.infer_frame(**f), self.model, frames, method=method,
+            percentile=percentile, before_pass=self.reset)
+        attach_quant_scales(self.model, result.scales)
+        self.reset()
+        return result
 
     def benchmark(self, frames, warmup: int = 1) -> Dict[str, float]:
         """Mean latency and FPS over the frames after `warmup`; each frame

@@ -10,6 +10,12 @@ flax path `a/b/kernel` becomes the state_dict key `a.b.weight`:
   FrozenBN batch_stats mean/var -> buffers mean/var
   embedding tables (bev/query embeddings, cams/level embeds,
   row/col positional embeds) -> copied as they are
+
+and, from the "quant" collection of a calibrated model:
+
+  <site>/scale (qdq_in, qdq_residual, qdq_q/k/v) -> the site's scale buffer
+  <layer>/wq int8 [in, out] or HWIO -> wq [out, in] or OIHW, still int8
+  <layer>/wscale [out]              -> wscale
 """
 from __future__ import annotations
 
@@ -36,10 +42,10 @@ def _walk(tree: Mapping, prefix=()):
 
 
 def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """flax {"params", "batch_stats"} tree (nested dicts of arrays) ->
-    the port's state_dict.  Raises on any collection or leaf it does not
+    """flax {"params", "batch_stats", "quant"} tree (nested dicts of arrays)
+    -> the port's state_dict.  Raises on any collection or leaf it does not
     consume; load the result with `load_state_dict(strict=True)`."""
-    unknown = set(variables) - {"params", "batch_stats"}
+    unknown = set(variables) - {"params", "batch_stats", "quant"}
     if unknown:
         raise KeyError(f"params_from_jax: unexpected collections {sorted(unknown)}")
     sd: Dict[str, torch.Tensor] = {}
@@ -62,6 +68,19 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
         if path[-1] not in ("mean", "var"):
             raise KeyError(f"params_from_jax: unconsumed leaf batch_stats/{'/'.join(path)}")
         sd[".".join(path)] = torch.tensor(np.asarray(arr, np.float32))
+    for path, arr in _walk(variables.get("quant", {})):
+        leaf = path[-1]
+        if leaf == "scale" and arr.ndim == 0 and len(path) > 1 and path[-2].startswith("qdq_"):
+            value = torch.tensor(np.asarray(arr, np.float32))
+        elif leaf == "wq" and arr.dtype == np.int8 and arr.ndim in (2, 4):
+            axes = (1, 0) if arr.ndim == 2 else (3, 2, 0, 1)
+            value = torch.tensor(np.ascontiguousarray(arr.transpose(axes)))
+        elif leaf == "wscale" and arr.ndim == 1:
+            value = torch.tensor(np.asarray(arr, np.float32))
+        else:
+            raise KeyError(f"params_from_jax: unconsumed leaf quant/{'/'.join(path)} "
+                           f"{arr.dtype} {arr.shape}")
+        sd[".".join(path)] = value
     return sd
 
 

@@ -50,8 +50,8 @@ def test_unknown_leaf_or_collection_raises(micro_variables):
                                            "stray": {"kernel_scale": np.ones(3)}}}
     with pytest.raises(KeyError, match="stray"):
         params_from_jax(extra)
-    with pytest.raises(KeyError, match="quant"):
-        params_from_jax({**micro_variables, "quant": {}})
+    with pytest.raises(KeyError, match="cache"):
+        params_from_jax({**micro_variables, "cache": {}})
 
 
 def test_port_imports_no_jax():
@@ -70,7 +70,11 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 20
+    assert int(res.stdout.split()[-1]) >= 30
+    for module in ("quant.qdq", "quant.calibrate", "quant.fold", "ops.int8_matmul",
+                   "tools.calibrate"):
+        assert os.path.exists(os.path.join(REPO, "bevformer_tensorrt_tpu_torch",
+                                           *module.split(".")) + ".py"), module
 
 
 def test_engine_refuses_cpu_fallback(monkeypatch):
@@ -81,11 +85,24 @@ def test_engine_refuses_cpu_fallback(monkeypatch):
     assert BEVFormerEngine(bevformer_micro(), device="cpu").device.type == "cpu"
 
 
-def test_quant_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        BEVFormer(bevformer_micro(quant=True))
-    with pytest.raises(NotImplementedError):
-        BEVFormer(bevformer_tiny(quant="int8"))
+def test_int8_refusals():
+    """What the quantized tiers still refuse: the int8 DCN gather table
+    (a DCN backbone under "int8" unless `dcn_tables` is excluded), an "int8"
+    forward without calibrated scales, and an unknown `quant`."""
+    dcn = dict(dcn_stages=(False, False, True, True))
+    with pytest.raises(NotImplementedError, match="int8 gather table of the DCN"):
+        BEVFormer(bevformer_micro(quant="int8", **dcn))
+    BEVFormer(bevformer_micro(quant="int8", quant_exclude=("dcn_tables",), **dcn))
+    BEVFormer(bevformer_micro(quant=True, **dcn))
+    assert bevformer_tiny(quant="int8").quant_exclude == ("self_attn/msda_tables",)
+    engine = BEVFormerEngine(bevformer_micro(quant="int8"), device="cpu")
+    cfg = engine.cfg
+    with pytest.raises(ValueError, match="calibrated activation scales"):
+        engine.infer_frame(np.zeros((1, cfg.num_cams, 3, cfg.img_h, cfg.img_w), np.float32),
+                           np.zeros(18, np.float32),
+                           np.tile(np.eye(4, dtype=np.float32), (1, cfg.num_cams, 1, 1)), "s")
+    with pytest.raises(ValueError, match="quant"):
+        BEVFormer(bevformer_micro(quant="int4"))
 
 
 def shape_variables(jcfg):
@@ -118,7 +135,8 @@ def test_every_flax_leaf_of_a_dcn_model_is_consumed():
 def test_small_and_base_build():
     """Both configs construct at full width (R101 caffe style, DCN on stages
     3-4), load the JAX package's variables strictly at reduced depth and
-    size, and still refuse `quant`."""
+    size, and refuse "int8" under the default policy, which leaves the int8
+    DCN table on."""
     from bevformer_tensorrt_tpu.configs import bevformer as jax_configs
     from bevformer_tensorrt_tpu_torch.configs import bevformer as configs
     from bevformer_tensorrt_tpu_torch.models.backbones.resnet import DeformConv2d
@@ -137,7 +155,7 @@ def test_small_and_base_build():
         small = BEVFormer(getattr(configs, fn)(**reduced))
         small.load_state_dict(sd, strict=True)
         assert len(sd) == len(jax.tree_util.tree_leaves(variables))
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="int8 gather table of the DCN"):
             BEVFormer(getattr(configs, fn)(quant="int8"))
 
 
@@ -178,6 +196,12 @@ def test_seeded_init_is_deterministic():
     ("void (anonymous namespace)::msda_kernel<float, 1>(float const*)", "msda kernel"),
     ("void (anonymous namespace)::dcn_im2col_kernel<float>(float const*, float const*)",
      "dcn kernel"),
+    ("void (anonymous namespace)::int8_gemm_kernel<float>(signed char const*)",
+     "int8 gemm kernel"),
+    ("void (anonymous namespace)::msda_kernel<signed char, float, 1>(signed char const*)",
+     "msda int8 kernel"),
+    ("void (anonymous namespace)::flash_int8_kernel<float, 32>(signed char const*)",
+     "flash int8 kernel"),
     ("Memcpy HtoD (Pageable -> Device)", "memcpy"),
 ])
 def test_profile_kernel_families(name, fam):
@@ -202,11 +226,19 @@ def test_nms_free_decode_matches_jax(rng):
 def test_plain_versions_swap_and_restore():
     """The measuring aid of tools/path_diff.py swaps the named wrappers for
     their plain versions inside the block only, also when the block raises."""
-    from bevformer_tensorrt_tpu_torch.ops import attention, dcn, msda
-    from bevformer_tensorrt_tpu_torch.tools.path_diff import compare, plain_versions
+    from bevformer_tensorrt_tpu_torch import ops
+    from bevformer_tensorrt_tpu_torch.ops import attention, dcn, int8_matmul, msda
+    from bevformer_tensorrt_tpu_torch.tools.path_diff import WRAPPERS, compare, plain_versions
 
     wrappers = (msda.multi_scale_deformable_attn, attention.flash_attention,
                 dcn.modulated_deform_conv2d)
+    six = [getattr(mod, name) for mod, name, _ in WRAPPERS.values()]
+    assert six == list(ops.KERNEL_WRAPPERS)  # every counted wrapper can be swapped
+    with plain_versions():
+        assert int8_matmul.int8_matmul is int8_matmul.int8_matmul_plain
+        assert msda.multi_scale_deformable_attn_int8 is msda.multi_scale_deformable_attn_int8_plain
+        assert attention.flash_attention_int8 is attention.flash_attention_int8_plain
+    assert [getattr(mod, name) for mod, name, _ in WRAPPERS.values()] == six
     with plain_versions(["dcn"]):
         assert dcn.modulated_deform_conv2d is dcn.modulated_deform_conv2d_plain
         assert msda.multi_scale_deformable_attn is wrappers[0]

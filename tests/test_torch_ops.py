@@ -144,7 +144,12 @@ def test_cpu_inputs_take_the_plain_path(rng):
     flash_attention(q, q, q)
     x, offset, mask, weight, _ = dcn_case(rng, dg=1, stride=1)
     port_dcn(x, offset, mask, weight, None)
-    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [0, 0, 0]
+    ops.flash_attention_int8(q, q, q)
+    ops.multi_scale_deformable_attn_int8(*(torch.from_numpy(a) for a in (value, ref, off, attn)),
+                                         shapes)
+    xi = torch.ones(3, 16, dtype=torch.int8)
+    ops.int8_matmul.int8_matmul(xi, xi[:2], 0.5, torch.ones(2))
+    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [0] * 6
 
 
 def dcn_case(rng, dg, stride, N=2, Cin=8, H=9, W=11, Cout=6, groups=1):

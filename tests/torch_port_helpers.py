@@ -50,8 +50,28 @@ def random_variables(module, rng, *args):
             return rng.random(s).astype(np.float32)
         return rng.standard_normal(s).astype(np.float32)
 
+    # under `quant` an init also creates the (empty) calibration collections
+    shapes = {k: v for k, v in dict(shapes).items() if k in ("params", "batch_stats")}
     tree = jax.tree_util.tree_map_with_path(draw, shapes)
     return jax.tree_util.tree_map(np.asarray, dict(tree))
+
+
+def amax_to_quant(amax_stats):
+    """A flax "amax_stats" collection -> the "quant" collection of `max`
+    calibration (scale = max(amax, 1e-6) / 127, as tests/test_quant.py)."""
+    from flax import traverse_util
+
+    flat = traverse_util.flatten_dict(jax.tree_util.tree_map(np.asarray, dict(amax_stats)))
+    return traverse_util.unflatten_dict(
+        {p[:-1] + ("scale",): np.float32(max(float(v), 1e-6) / 127.0) for p, v in flat.items()})
+
+
+def model_batches(cfg, frames):
+    """The detector's positional arguments for each frame, each starting a
+    scene (zero prev_bev, use_prev_bev 0)."""
+    nq = cfg.bev_h * cfg.bev_w
+    return [(f["image"], np.zeros((nq, 1, cfg.embed_dims), np.float32), np.float32(0.0),
+             f["can_bus"], f["lidar2img"]) for f in frames]
 
 
 def load_port(port_module, variables):
