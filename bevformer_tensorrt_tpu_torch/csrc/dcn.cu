@@ -37,11 +37,27 @@
 // map).  x, offset and mask are read through strides, so NCHW and NHWC
 // inputs need no copy.  The kernel allocates nothing and launches on the
 // caller's stream.
+//
+// Second entry, `dcn_im2col_int8`: the same im2col from an int8 copy of the
+// feature map.  Replaces the `packed="int8"` table of the same TPU kernel
+// (bevformer_tensorrt_tpu/ops/dcn.py::_dcn_pallas; the scale lands on the
+// columns at ops/dcn.py:227-230).  The map is quantized outside the kernel
+// with one float32 scale per (image, group of `ch_group` consecutive
+// channels); the kernel reads q through x's strides and writes
+//   col[n, t*Cin + c, s] = scale[n, c / ch_group] * mask * sum_corners w * q
+// with float32 sums, so the dequantization costs no pass over the column
+// matrix (the column is linear in the table).  The TPU kernel's u32 int8-quad
+// packing, corner rolls and bfloat16 blend weights do not carry over.  Still
+// bound by the column write: the int8 map only cuts the corner reads to a
+// quarter.  It is the float kernel with another element type for x (a
+// template parameter); offsets, mask and columns keep the activation type.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -50,6 +66,7 @@ constexpr int kChunk = 8;      // channels per block
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
@@ -63,10 +80,13 @@ struct Geometry {
   long long ms_n, ms_c, ms_s;        // mask as [N, dg*kh*kw, Ho*Wo]
 };
 
-template <typename T>
+// TX is the element type of x (T, or int8_t with `scale` [N, Cin / ch_group]);
+// T the type of offset, mask and col.
+template <typename TX, typename T>
 __global__ void __launch_bounds__(kThreads)
-dcn_im2col_kernel(const T* __restrict__ x, const T* __restrict__ offset,
-                  const T* __restrict__ mask, T* __restrict__ col, const Geometry p) {
+dcn_im2col_kernel(const TX* __restrict__ x, const float* __restrict__ scale, const int ch_group,
+                  const T* __restrict__ offset, const T* __restrict__ mask,
+                  T* __restrict__ col, const Geometry p) {
   const int S = p.Ho * p.Wo;
   const int s = blockIdx.x * kThreads + threadIdx.x;
   if (s >= S) return;
@@ -78,8 +98,16 @@ dcn_im2col_kernel(const T* __restrict__ x, const T* __restrict__ offset,
   const int c1 = min(c0 + kChunk, (g + 1) * cpg);
   const int ho = s / p.Wo, wo = s % p.Wo;
   const int taps = p.kh * p.kw;
+  // the scale group of the chunk's first channel, found once: a division
+  // per column value cost the int8 entry more than its narrower reads saved
+  const float* scale0 = nullptr;
+  int group_end0 = 0;
+  if constexpr (std::is_same<TX, int8_t>::value) {
+    scale0 = scale + n * (p.Cin / ch_group) + c0 / ch_group;
+    group_end0 = (c0 / ch_group + 1) * ch_group;
+  }
 
-  const T* xn = x + n * p.xs_n;
+  const TX* xn = x + n * p.xs_n;
   const T* on = offset + n * p.os_n + s * p.os_s;
   const T* mn = mask + n * p.ms_n + s * p.ms_s;
   T* cn = col + (long long)n * taps * p.Cin * S + s;
@@ -113,7 +141,10 @@ dcn_im2col_kernel(const T* __restrict__ x, const T* __restrict__ offset,
     const long long k00 = ya + xa, k01 = ya + xb, k10 = yb + xa, k11 = yb + xb;
 
     T* ct = cn + ((long long)t * p.Cin + c0) * S;
-    const T* xc = xn + c0 * p.xs_c;
+    const TX* xc = xn + c0 * p.xs_c;
+    const float* sp = scale0;  // int8 table: the scale of channel c, stepped along the chunk
+    float sc = scale0 ? *scale0 : 1.f;
+    int group_end = group_end0;
     if (w00 == 0.f && w01 == 0.f && w10 == 0.f && w11 == 0.f) {
       for (int c = c0; c < c1; ++c, ct += S) *ct = from_f<T>(0.f);
       continue;
@@ -124,22 +155,29 @@ dcn_im2col_kernel(const T* __restrict__ x, const T* __restrict__ offset,
       v = fmaf(w01, to_f(xc[k01]), v);
       v = fmaf(w10, to_f(xc[k10]), v);
       v = fmaf(w11, to_f(xc[k11]), v);
+      if constexpr (std::is_same<TX, int8_t>::value) {
+        if (c == group_end) {  // the chunk's channels ran into the next scale group
+          sc = *++sp;
+          group_end += ch_group;
+        }
+        v *= sc;
+      }
       *ct = from_f<T>(v);
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* offset, const void* mask, void* col, int N,
-                   const Geometry& p, cudaStream_t stream) {
+template <typename TX, typename T>
+cudaError_t launch(const void* x, const void* scale, int ch_group, const void* offset,
+                   const void* mask, void* col, int N, const Geometry& p, cudaStream_t stream) {
   const int S = p.Ho * p.Wo;
   const int cpg = p.Cin / p.dg;
   const int chunks = (cpg + kChunk - 1) / kChunk;
   const dim3 grid((unsigned)((S + kThreads - 1) / kThreads), (unsigned)(p.dg * chunks),
                   (unsigned)N);
   if (grid.y > 65535u || grid.z > 65535u) return cudaErrorInvalidValue;
-  dcn_im2col_kernel<T><<<grid, kThreads, 0, stream>>>(
-      (const T*)x, (const T*)offset, (const T*)mask, (T*)col, p);
+  dcn_im2col_kernel<TX, T><<<grid, kThreads, 0, stream>>>(
+      (const TX*)x, (const float*)scale, ch_group, (const T*)offset, (const T*)mask, (T*)col, p);
   return cudaGetLastError();
 }
 
@@ -159,8 +197,31 @@ int dcn_im2col(const void* x, const void* offset, const void* mask, void* col, i
   const Geometry p = {Cin,  H,    W,    Ho,   Wo,   kh,   kw,   stride, pad,  dil,  dg,
                       xs_n, xs_c, xs_y, xs_x, os_n, os_c, os_s, ms_n,   ms_c, ms_s};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return (int)launch<float>(x, offset, mask, col, N, p, st);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(x, offset, mask, col, N, p, st);
+  if (dtype == 0) return (int)launch<float, float>(x, nullptr, 1, offset, mask, col, N, p, st);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16, __nv_bfloat16>(x, nullptr, 1, offset, mask, col, N, p, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The same from an int8 map q (x's shape and strides) with scale
+// [N, Cin / ch_group] float32, contiguous.  dtype is that of offset, mask
+// and col.
+int dcn_im2col_int8(const void* q, const void* scale, const void* offset, const void* mask,
+                    void* col, int N, int Cin, int H, int W, int Ho, int Wo, int kh, int kw,
+                    int stride, int pad, int dil, int dg, int ch_group, long long xs_n,
+                    long long xs_c, long long xs_y, long long xs_x, long long os_n,
+                    long long os_c, long long os_s, long long ms_n, long long ms_c,
+                    long long ms_s, int dtype, void* stream) {
+  if (N < 1 || Cin < 1 || dg < 1 || Cin % dg || Ho < 1 || Wo < 1 || kh < 1 || kw < 1 ||
+      ch_group < 1 || Cin % ch_group)
+    return (int)cudaErrorInvalidValue;
+  const Geometry p = {Cin,  H,    W,    Ho,   Wo,   kh,   kw,   stride, pad,  dil,  dg,
+                      xs_n, xs_c, xs_y, xs_x, os_n, os_c, os_s, ms_n,   ms_c, ms_s};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return (int)launch<int8_t, float>(q, scale, ch_group, offset, mask, col, N, p, st);
+  if (dtype == 1)
+    return (int)launch<int8_t, __nv_bfloat16>(q, scale, ch_group, offset, mask, col, N, p, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -9,9 +9,9 @@ blocks of the JAX module belong to CenterNet and are not ported yet.
 
 Under `quant` every conv is a quantization site and the identity branch of
 a block passes the QDQ site `qdq_residual` ahead of the residual add.  The
-DCN op itself ignores `quant` unless it is "int8": the int8 gather table of
-the im2col (pseudo-site `<conv2>/dcn_tables`) is not ported, so a DCN block
-under "int8" raises unless the policy excludes `dcn_tables`.
+DCN op itself ignores `quant` unless it is "int8": then it samples from the
+int8 gather table of the im2col, unless the policy excludes the pseudo-site
+`<conv2>/dcn_tables`, which keeps the table in floating point.
 """
 from __future__ import annotations
 
@@ -32,7 +32,9 @@ STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 class DeformConv2d(nn.Module):
     """DCNv2 3x3 block, no bias on the deformable conv.  `conv_offset`
     emits dg*27 channels in mmcv's layout: the first 2*ntap are the offsets,
-    per tap interleaved (2t = y, 2t+1 = x), the last ntap the mask logits."""
+    per tap interleaved (2t = y, 2t+1 = x), the last ntap the mask logits.
+    Under "int8" the op samples from the int8 table of `x` (`int8_table`,
+    resolved under the policy at the site `<module>/dcn_tables`)."""
 
     def __init__(self, in_channels: int, features: int, stride: int = 1,
                  deform_groups: int = 1, quant=False):
@@ -45,29 +47,20 @@ class DeformConv2d(nn.Module):
         self.conv_offset = QConv(in_channels, deform_groups * 27, 3, stride, 1, quant=quant)
         self.weight = nn.Parameter(torch.empty(features, in_channels, 3, 3))
 
-    def _refuse_int8_table(self) -> None:
-        if self.int8_table:
-            raise NotImplementedError(
-                f"DeformConv2d '{'/'.join(self.path)}': the int8 gather table of the DCN "
-                "im2col (quant='int8' at the site '<module>/dcn_tables') is not ported yet "
-                "(ROADMAP.md queue 2, the int8 DCN table); add 'dcn_tables' to quant_exclude "
-                "to keep this table in floating point")
-
     def resolve_quant(self, path, exclude) -> None:
         self.path = tuple(path)
         self.int8_table = effective_quant(
             self.quant, self.path + ("dcn_tables",), exclude) == "int8"
-        self._refuse_int8_table()
 
     def forward(self, x):
-        self._refuse_int8_table()
         ntap = self.deform_groups * 9
         off_mask = self.conv_offset(x)
         offset = off_mask[:, : 2 * ntap].contiguous()
         mask = torch.sigmoid(off_mask[:, 2 * ntap:]).contiguous()
         return dcn_ops.modulated_deform_conv2d(
             x.contiguous(), offset, mask, self.weight, None, stride=self.stride, padding=1,
-            dilation=1, groups=1, deform_groups=self.deform_groups, layout="NCHW")
+            dilation=1, groups=1, deform_groups=self.deform_groups, layout="NCHW",
+            quant="int8" if self.int8_table else False)
 
 
 class Bottleneck(nn.Module):

@@ -8,10 +8,14 @@ from .attention import (
 )
 from .dcn import (
     deform_im2col,
+    deform_im2col_int8,
+    deform_im2col_int8_plain,
     deform_im2col_plain,
     modulated_deform_conv2d,
     modulated_deform_conv2d_plain,
+    quantize_dcn_table,
 )
+from .gather_probe import gather_blend, gather_blend_plain, gather_rows, gather_rows_plain
 from . import int8_matmul  # the module: its wrapper shares the name
 from .msda import (
     msda_sampling_locations,
@@ -22,9 +26,12 @@ from .msda import (
 )
 from .rotate import rotate
 
+# every function that carries a launch count, in the order the smoke run
+# reports them: the model's seven kernels, then the two probes of the kernel
+# bench tool
 KERNEL_WRAPPERS = (multi_scale_deformable_attn, flash_attention, modulated_deform_conv2d,
                    int8_matmul.int8_matmul, multi_scale_deformable_attn_int8,
-                   flash_attention_int8)
+                   flash_attention_int8, deform_im2col_int8, gather_rows, gather_blend)
 
 
 def reset_launch_counts() -> None:
@@ -40,7 +47,14 @@ __all__ = [
     "multi_head_attention",
     "qkv_plain",
     "deform_im2col",
+    "deform_im2col_int8",
+    "deform_im2col_int8_plain",
     "deform_im2col_plain",
+    "gather_blend",
+    "gather_blend_plain",
+    "gather_rows",
+    "gather_rows_plain",
+    "quantize_dcn_table",
     "modulated_deform_conv2d",
     "modulated_deform_conv2d_plain",
     "msda_sampling_locations",

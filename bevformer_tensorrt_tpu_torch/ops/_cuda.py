@@ -18,7 +18,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = CSRC / "build"
-KERNELS = ("msda", "flash_attn", "dcn", "int8_gemm", "flash_attn_int8")
+KERNELS = ("msda", "flash_attn", "dcn", "int8_gemm", "flash_attn_int8", "gather_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -44,16 +44,17 @@ def library_path(name: str) -> Path:
     return BUILD / f"lib{name}-{digest[:16]}.so"
 
 
-def build(names: Iterable[str] = KERNELS, verbose: bool = False) -> Dict[str, str]:
-    """Compile every named kernel whose library is missing: one nvcc per
-    source, all started together.  Returns nvcc's output per kernel built
-    (with `verbose`, ptxas' register and spill report).  Raises on any
-    failed compile."""
+def build(names: Iterable[str] = KERNELS, verbose: bool = False,
+          force: bool = False) -> Dict[str, str]:
+    """Compile every named kernel whose library is missing (with `force`,
+    every named kernel): one nvcc per source, all started together.  Returns
+    nvcc's output per kernel built (with `verbose`, ptxas' register and spill
+    report).  Raises on any failed compile."""
     BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         out = library_path(name)
-        if out.exists():
+        if out.exists() and not force:
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),

@@ -10,6 +10,17 @@ taps and channels with the weight.
 the kernel of `csrc/dcn.cu` (or the call raises); the product with the
 weight that follows is one `torch.matmul` and the bias a tensor add, as the
 JAX package leaves both to XLA outside its Pallas kernel.
+
+`quant="int8"` samples from an int8 copy of the feature map (the JAX
+package's `packed="int8"` gather table): `quantize_dcn_table` gives the map
+one dynamic scale per (image, group of 64 or 32 consecutive channels), the
+im2col gathers the int8 values (`deform_im2col_int8`, the second entry of
+`csrc/dcn.cu`) and the scale multiplies the columns, which is exact because
+a column is linear in the table.  The table is taken only where the JAX op
+takes it: `groups == 1`, `deform_groups == 1` and `Cin % 32 == 0`
+(`int8_table_eligible`); elsewhere `quant` is ignored and the op is the
+floating-point one.  That is the op's contract in both packages, not a
+fallback.
 """
 from __future__ import annotations
 
@@ -84,6 +95,11 @@ def _tap_samples(xf, off, msk, t, kw, base_y, base_x, dilation, H, W):
     return sampled * msk[:, :, t, None, :]
 
 
+def _check_quant(quant) -> None:
+    if quant not in (False, True, "int8"):
+        raise ValueError(f"dcn: quant {quant!r}: expected False, True or 'int8'")
+
+
 def _plain_operands(x, offset, mask, kh, kw, Ho, Wo, stride, padding, dg):
     N, Cin, H, W = x.shape
     S, T = Ho * Wo, kh * kw
@@ -95,6 +111,47 @@ def _plain_operands(x, offset, mask, kh, kw, Ho, Wo, stride, padding, dg):
     base_y = ys[:, None].expand(Ho, Wo).reshape(S)
     base_x = xs[None, :].expand(Ho, Wo).reshape(S)
     return xf, off, msk, base_y, base_x
+
+
+def int8_table_eligible(Cin: int, groups: int, deform_groups: int) -> bool:
+    """Where `quant="int8"` takes the int8 table (the JAX op's `eligible`)."""
+    return groups == 1 and deform_groups == 1 and Cin % 32 == 0
+
+
+def dcn_ch_group(Cin: int) -> int:
+    """Channels that share one scale of the int8 table: 64, or 32 where 64
+    does not divide Cin."""
+    return 64 if Cin % 64 == 0 else 32
+
+
+def quantize_dcn_table(x, ch_group: int, layout="NCHW"):
+    """The int8 table of a feature map: (q, scale) with q int8 of x's shape
+    and layout and scale [N, Cin / ch_group] float32, one per image and group
+    of `ch_group` consecutive channels:
+    scale = max(amax, 1e-12) / 127, q = clip(round(x / scale), -127, 127),
+    round half to even, float32 math whatever x's dtype."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"dcn: layout {layout!r} is not one of {LAYOUTS}")
+    c_axis = 3 if layout == "NHWC" else 1
+    N, Cin = x.shape[0], x.shape[c_axis]
+    if Cin % ch_group:
+        raise ValueError(f"dcn: ch_group {ch_group} does not divide Cin {Cin}")
+    xf = x.float()
+    amax = xf.abs().amax(dim=(1, 2) if layout == "NHWC" else (2, 3))  # [N, Cin]
+    scale = amax.reshape(N, Cin // ch_group, ch_group).amax(-1).clamp_min(1e-12) / 127.0
+    q = torch.round(xf / _per_channel(scale, Cin, layout)).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _per_channel(scale, Cin: int, layout: str):
+    """scale [N, G] -> each channel's scale, broadcastable against the map."""
+    s = scale.repeat_interleave(Cin // scale.shape[1], dim=1)
+    return s[:, None, None, :] if layout == "NHWC" else s[:, :, None, None]
+
+
+def dequantize_dcn_table(q, scale, layout="NCHW"):
+    """q * scale of its channel group, float32."""
+    return q.float() * _per_channel(scale, q.shape[3 if layout == "NHWC" else 1], layout)
 
 
 def deform_im2col_plain(x, offset, mask, kernel_size: Tuple[int, int], stride=1, padding=1,
@@ -112,14 +169,32 @@ def deform_im2col_plain(x, offset, mask, kernel_size: Tuple[int, int], stride=1,
     return torch.cat(cols, dim=1).to(x.dtype)
 
 
+def deform_im2col_int8_plain(q, scale, offset, mask, kernel_size: Tuple[int, int], stride=1,
+                             padding=1, dilation=1, deform_groups=1, layout="NCHW"):
+    """Plain PyTorch version of `deform_im2col_int8`: the floating-point
+    plain im2col of the dequantized table, in float32, returned in the dtype
+    of `offset`."""
+    x = dequantize_dcn_table(q, scale, layout)
+    return deform_im2col_plain(x, offset, mask, kernel_size, stride, padding, dilation,
+                               deform_groups, layout).to(offset.dtype)
+
+
 def modulated_deform_conv2d_plain(x, offset, mask, weight, bias=None, stride=1, padding=1,
-                                  dilation=1, groups=1, deform_groups=1, layout="NCHW"):
+                                  dilation=1, groups=1, deform_groups=1, layout="NCHW",
+                                  quant=False):
     """Plain PyTorch version (follows `_dcn_xla`): a loop over the kh*kw
     taps, each one bilinear gather and one [Cout, Cin] product, float32
     positions, weights and accumulation.  Any `groups` and `deform_groups`.
+    With `quant="int8"` on an eligible shape the map is quantized and
+    dequantized first (the int8 table), then sampled the same way.
     Returns the output in x.dtype and in `layout`."""
     N, Cin, H, W, Cout, kh, kw, Ho, Wo = _geometry(
         x, offset, mask, weight, stride, padding, dilation, groups, deform_groups, layout)
+    _check_quant(quant)
+    if quant == "int8" and int8_table_eligible(Cin, groups, deform_groups):
+        table = dequantize_dcn_table(*quantize_dcn_table(x, dcn_ch_group(Cin), layout), layout)
+        return modulated_deform_conv2d_plain(table, offset, mask, weight, bias, stride, padding,
+                                             dilation, groups, deform_groups, layout).to(x.dtype)
     x, offset, mask = _to_nchw(x, offset, mask, layout)
     xf, off, msk, base_y, base_x = _plain_operands(
         x, offset, mask, kh, kw, Ho, Wo, stride, padding, deform_groups)
@@ -168,7 +243,78 @@ def _dcn_lib():
         lib.dcn_im2col.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
                                    + [ctypes.c_longlong] * 10 + [ctypes.c_int, ctypes.c_void_p])
         lib.dcn_im2col.restype = ctypes.c_int
+        lib.dcn_im2col_int8.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
+                                        + [ctypes.c_longlong] * 10
+                                        + [ctypes.c_int, ctypes.c_void_p])
+        lib.dcn_im2col_int8.restype = ctypes.c_int
     return lib
+
+
+def _launch_im2col(x, table_scale, offset, mask, kernel_size, stride, padding, dilation,
+                   deform_groups, layout):
+    """Checks and launch shared by the two entries of `csrc/dcn.cu`.  `x` is
+    the map (of offset's dtype) when `table_scale` is None, else its int8
+    table with `table_scale` [N, Cin / ch_group] float32."""
+    kh, kw = kernel_size
+    what = "dcn kernel" if table_scale is None else "dcn int8 kernel"
+    if layout not in LAYOUTS:
+        raise ValueError(f"dcn: layout {layout!r} is not one of {LAYOUTS}")
+    if not x.is_cuda:
+        raise ValueError(f"{what}: x must be a CUDA tensor")
+    if offset.dtype not in _DTYPES:
+        raise TypeError(f"{what}: dtype {offset.dtype} is not float32 or bfloat16")
+    if mask.dtype != offset.dtype:
+        raise TypeError(f"{what}: offset and mask must have one dtype")
+    if table_scale is None and x.dtype != offset.dtype:
+        raise TypeError(f"{what}: offset and mask must have x's dtype {x.dtype}")
+    if table_scale is not None and x.dtype != torch.int8:
+        raise TypeError(f"{what}: the table must be int8, got {x.dtype}")
+    if offset.device != x.device or mask.device != x.device:
+        raise ValueError(f"{what}: all inputs must be on one CUDA device")
+    if not (x.is_contiguous() and offset.is_contiguous() and mask.is_contiguous()):
+        raise ValueError(f"{what}: inputs must be contiguous")
+    if x.dim() != 4 or offset.dim() != 4 or mask.dim() != 4:
+        raise ValueError(f"{what}: x, offset and mask must be 4-D")
+    xn, on, mn = _to_nchw(x, offset, mask, layout)  # views: only the strides change
+    N, Cin, H, W = xn.shape
+    Ho, Wo = on.shape[2:]
+    S = Ho * Wo
+    rows = deform_groups * kh * kw
+    if (Cin % deform_groups or tuple(on.shape) != (N, 2 * rows, Ho, Wo)
+            or tuple(mn.shape) != (N, rows, Ho, Wo)):
+        raise ValueError(f"{what}: offset {tuple(offset.shape)} and mask {tuple(mask.shape)} do "
+                         f"not fit x {tuple(x.shape)} with {deform_groups} deform groups")
+    if N > 65535 or H * W >= 2 ** 31 or kh * kw * Cin * S >= 2 ** 31:
+        raise ValueError(f"{what}: shape x {tuple(x.shape)} is beyond the kernel's index range")
+    if table_scale is not None:
+        G = table_scale.shape[1] if table_scale.dim() == 2 else 0
+        if (table_scale.dtype != torch.float32 or G < 1 or Cin % G
+                or tuple(table_scale.shape) != (N, G) or not table_scale.is_contiguous()
+                or table_scale.device != x.device):
+            raise ValueError(f"{what}: the scale must be float32 [N, Cin / ch_group] on x's "
+                             f"device, got {table_scale.dtype} {tuple(table_scale.shape)}")
+    col = torch.empty((N, kh * kw * Cin, S), dtype=offset.dtype, device=x.device)
+    if col.numel() == 0:
+        return col
+    # the (Ho, Wo) plane of offset and mask is addressed by one pixel stride
+    strides = (*xn.stride(), *on.stride()[:2], on.stride(3), *mn.stride()[:2], mn.stride(3))
+    geometry = (N, Cin, H, W, Ho, Wo, kh, kw, stride, padding, dilation, deform_groups)
+    lib = _dcn_lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if table_scale is None:
+        err = lib.dcn_im2col(
+            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), col.data_ptr(),
+            *geometry, *strides, _DTYPES[offset.dtype], stream)
+        _cuda.check(lib, err, "dcn im2col kernel launch")
+        modulated_deform_conv2d.launches += 1
+    else:
+        err = lib.dcn_im2col_int8(
+            x.data_ptr(), table_scale.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+            col.data_ptr(), *geometry, Cin // table_scale.shape[1], *strides,
+            _DTYPES[offset.dtype], stream)
+        _cuda.check(lib, err, "dcn int8 im2col kernel launch")
+        deform_im2col_int8.launches += 1
+    return col
 
 
 def deform_im2col(x, offset, mask, kernel_size: Tuple[int, int], stride=1, padding=1,
@@ -178,40 +324,32 @@ def deform_im2col(x, offset, mask, kernel_size: Tuple[int, int], stride=1, paddi
     x.dtype.  x, offset and mask are contiguous CUDA tensors of one dtype
     (float32 or bfloat16) in `layout`; the kernel reads either layout through
     strides, so no input is copied."""
-    kh, kw = kernel_size
-    if not x.is_cuda:
-        raise ValueError("dcn kernel: x must be a CUDA tensor")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"dcn kernel: x dtype {x.dtype} is not float32 or bfloat16")
-    if offset.dtype != x.dtype or mask.dtype != x.dtype:
-        raise TypeError("dcn kernel: offset and mask must have x's dtype")
-    if offset.device != x.device or mask.device != x.device:
-        raise ValueError("dcn kernel: all inputs must be on one CUDA device")
-    if not (x.is_contiguous() and offset.is_contiguous() and mask.is_contiguous()):
-        raise ValueError("dcn kernel: inputs must be contiguous")
-    xn, on, mn = _to_nchw(x, offset, mask, layout)  # views: only the strides change
-    N, Cin, H, W = xn.shape
-    Ho, Wo = on.shape[2:]
-    S = Ho * Wo
-    if N > 65535 or H * W >= 2 ** 31 or kh * kw * Cin * S >= 2 ** 31:
-        raise ValueError(f"dcn kernel: shape x {tuple(x.shape)} is beyond the kernel's index range")
-    col = torch.empty((N, kh * kw * Cin, S), dtype=x.dtype, device=x.device)
-    if col.numel() == 0:
-        return col
-    # the (Ho, Wo) plane of offset and mask is addressed by one pixel stride
-    strides = (*xn.stride(), *on.stride()[:2], on.stride(3), *mn.stride()[:2], mn.stride(3))
-    lib = _dcn_lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.dcn_im2col(
-        x.data_ptr(), offset.data_ptr(), mask.data_ptr(), col.data_ptr(),
-        N, Cin, H, W, Ho, Wo, kh, kw, stride, padding, dilation, deform_groups,
-        *strides, _DTYPES[x.dtype], stream)
-    _cuda.check(lib, err, "dcn im2col kernel launch")
-    modulated_deform_conv2d.launches += 1
-    return col
+    return _launch_im2col(x, None, offset, mask, kernel_size, stride, padding, dilation,
+                          deform_groups, layout)
 
 
-def _dcn_cuda(x, offset, mask, weight, bias, stride, padding, dilation, groups, dg, layout):
+def deform_im2col_int8(q, scale, offset, mask, kernel_size: Tuple[int, int], stride=1,
+                       padding=1, dilation=1, deform_groups=1, layout="NCHW"):
+    """The deformable im2col from an int8 table: (q, scale) as
+    `quantize_dcn_table` returns them, offset and mask float32 or bfloat16.
+    Returns `scale * mask * sum of the bilinear corners of q`, the column
+    matrix [N, kh*kw*Cin, Ho*Wo], in offset's dtype.  CUDA tensors launch the
+    `dcn_im2col_int8` entry of `csrc/dcn.cu` (or the call raises), CPU
+    tensors run `deform_im2col_int8_plain`."""
+    if q.is_cuda:
+        return _launch_im2col(q, scale, offset, mask, kernel_size, stride, padding, dilation,
+                              deform_groups, layout)
+    if q.device.type != "cpu":
+        raise ValueError(f"dcn: unsupported device {q.device}")
+    return deform_im2col_int8_plain(q, scale, offset, mask, kernel_size, stride, padding,
+                                    dilation, deform_groups, layout)
+
+
+deform_im2col_int8.launches = 0
+
+
+def _dcn_cuda(x, offset, mask, weight, bias, stride, padding, dilation, groups, dg, layout,
+              int8_table):
     N, Cin, H, W, Cout, kh, kw, Ho, Wo = _geometry(
         x, offset, mask, weight, stride, padding, dilation, groups, dg, layout)
     if weight.device != x.device or (bias is not None and bias.device != x.device):
@@ -221,12 +359,20 @@ def _dcn_cuda(x, offset, mask, weight, bias, stride, padding, dilation, groups, 
                                   "(no model of the repo uses it)")
     # one column buffer per call, freed to the allocator when the call
     # returns: 26 DCN layers reuse one block
-    col = deform_im2col(x, offset, mask, (kh, kw), stride, padding, dilation, dg, layout)
+    if int8_table:
+        if x.dtype not in _DTYPES or offset.dtype != x.dtype or mask.dtype != x.dtype:
+            raise TypeError("dcn int8 kernel: x, offset and mask must have one dtype, float32 "
+                            "or bfloat16")
+        q, scale = quantize_dcn_table(x, dcn_ch_group(Cin), layout)
+        col = deform_im2col_int8(q, scale, offset, mask, (kh, kw), stride, padding, dilation,
+                                 dg, layout)
+    else:
+        col = deform_im2col(x, offset, mask, (kh, kw), stride, padding, dilation, dg, layout)
     return col_product(col, weight, bias, Ho, Wo, layout)
 
 
 def modulated_deform_conv2d(x, offset, mask, weight, bias=None, stride=1, padding=1,
-                            dilation=1, groups=1, deform_groups=1, layout="NCHW"):
+                            dilation=1, groups=1, deform_groups=1, layout="NCHW", quant=False):
     """DCNv2 forward.
 
     Args:
@@ -239,16 +385,24 @@ def modulated_deform_conv2d(x, offset, mask, weight, bias=None, stride=1, paddin
       weight: [Cout, Cin // groups, kh, kw].  On the card only groups = 1
         is taken (no model of the repo uses more); CPU tensors take any.
       bias: [Cout] or None.
+      quant: False, True or "int8", the JAX op's meaning: "int8" samples
+        from the int8 table of x (`quantize_dcn_table`) where the shape is
+        eligible (`int8_table_eligible`: groups 1, deform_groups 1,
+        Cin % 32 == 0); on any other shape, and for False or True, the op is
+        the floating-point one.
     Returns:
       [N, Cout, Ho, Wo] (NHWC: [N, Ho, Wo, Cout]) in x.dtype.
     """
+    _check_quant(quant)
     if x.is_cuda:
+        Cin = x.shape[3 if layout == "NHWC" else 1] if x.dim() == 4 else 0
+        int8_table = quant == "int8" and int8_table_eligible(Cin, groups, deform_groups)
         return _dcn_cuda(x, offset, mask, weight, bias, stride, padding, dilation, groups,
-                         deform_groups, layout)
+                         deform_groups, layout, int8_table)
     if x.device.type != "cpu":
         raise ValueError(f"dcn: unsupported device {x.device}")
     return modulated_deform_conv2d_plain(x, offset, mask, weight, bias, stride, padding,
-                                         dilation, groups, deform_groups, layout)
+                                         dilation, groups, deform_groups, layout, quant)
 
 
 modulated_deform_conv2d.launches = 0

@@ -8,7 +8,9 @@ while everything else quantizes.  A site is a module's qualified name with
 plus three pseudo-leaves for decisions that are not a dense layer's:
     .../msda_tables   int8 value tables in the MSDA kernel
     .../flash         the int8 flash-attention kernel
-    .../dcn_tables    the int8 gather table of the DCN im2col
+    .../dcn_tables    the int8 gather table of the DCN im2col (on every
+                      `DeformConv2d`; excluded, the block samples the
+                      floating-point map)
 A pattern excludes a site if it is a substring of the path or an fnmatch
 glob match, so the same patterns exclude the same sites as in the JAX
 package (the port names every submodule as its flax counterpart).

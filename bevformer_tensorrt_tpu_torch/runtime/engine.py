@@ -76,8 +76,10 @@ class BEVFormerEngine:
     """Per-frame BEVFormer inference with the recurrent BEV kept on the device.
 
     `model` defaults to a `BEVFormer(cfg)` with seeded weights
-    (`init_weights` from `seed`); `state_dict` (e.g. from
-    `weights.params_from_jax`) is loaded strictly when given."""
+    (`init_weights` from `seed`); `state_dict` (from
+    `runtime.torch_import.load_bevformer_checkpoint` for an upstream
+    checkpoint, or `weights.params_from_jax` for flax variables) is loaded
+    strictly when given."""
 
     def __init__(self, cfg: BEVFormerConfig, model: Optional[BEVFormer] = None,
                  state_dict=None, device=None, seed: int = 0):

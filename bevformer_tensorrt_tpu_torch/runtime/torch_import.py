@@ -1,0 +1,198 @@
+"""Load upstream (mmdet / mmcv) BEVFormer checkpoints into the port (port of
+the BEVFormer part of `bevformer_tensorrt_tpu/runtime/torch_import.py`).
+
+The upstream state_dict names its tensors `img_backbone.layer*.*`,
+`img_neck.{lateral_convs,fpn_convs}.*`,
+`pts_bbox_head.{transformer,cls_branches,reg_branches,...}`; the port names
+every submodule as the flax module of the same role.  The port's layers keep
+torch's layouts, so where the JAX importer transposes (Linear to
+[in, out], conv OIHW to HWIO, the deformable conv's own weight) this loader
+only renames:
+
+  Linear / Conv weight, bias        -> the same tensors under the port's name
+  BatchNorm weight, bias            -> FrozenBN weight, bias
+  BatchNorm running_mean / _var     -> FrozenBN buffers mean / var (eps 1e-5
+                                       on both sides)
+  nn.MultiheadAttention in_proj     -> split into q_proj / k_proj / v_proj
+  nn.Embedding `.weight` tables     -> the port's bare parameters
+
+`load_bevformer_checkpoint` is strict in both directions: a key the model
+needs and the checkpoint lacks, or a key of the checkpoint that no tensor of
+the model takes, raises `KeyError` with the key's name.  Only BatchNorm's
+`num_batches_tracked` counters and the head's `code_weights` (a loss weight)
+are passed over: upstream checkpoints carry them and inference has no use
+for them.  The importers of the other detector families wait for their
+families.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..configs.bevformer import BEVFormerConfig
+from ..models.backbones.resnet import STAGE_BLOCKS
+
+# (port key, upstream key, third): `third` is None, or 0 / 1 / 2 for the q / k /
+# v rows of an nn.MultiheadAttention in_proj tensor
+Entry = Tuple[str, str, Optional[int]]
+
+IGNORED_SUFFIXES = (".num_batches_tracked",)
+IGNORED_KEYS = ("pts_bbox_head.code_weights",)
+
+
+def _wb(dst: str, src: str, bias: bool = True) -> Iterator[Entry]:
+    yield f"{dst}.weight", f"{src}.weight", None
+    if bias:
+        yield f"{dst}.bias", f"{src}.bias", None
+
+
+def _bn(dst: str, src: str) -> Iterator[Entry]:
+    yield from _wb(dst, src)
+    yield f"{dst}.mean", f"{src}.running_mean", None
+    yield f"{dst}.var", f"{src}.running_var", None
+
+
+def _resnet(cfg: BEVFormerConfig, dst: str, src: str) -> Iterator[Entry]:
+    yield from _wb(f"{dst}.stem_conv", f"{src}.conv1", bias=False)
+    yield from _bn(f"{dst}.stem_bn", f"{src}.bn1")
+    for stage, blocks in enumerate(STAGE_BLOCKS[cfg.backbone_depth]):
+        for b in range(blocks):
+            d, s = f"{dst}.stage{stage}_block{b}", f"{src}.layer{stage + 1}.{b}"
+            for n in (1, 2, 3):
+                yield from _wb(f"{d}.conv{n}", f"{s}.conv{n}", bias=False)
+                yield from _bn(f"{d}.bn{n}", f"{s}.bn{n}")
+            if cfg.dcn_stages[stage]:  # mmcv DCN: conv2.weight beside conv2.conv_offset
+                yield from _wb(f"{d}.conv2.conv_offset", f"{s}.conv2.conv_offset")
+            if b == 0:
+                yield from _wb(f"{d}.downsample_conv", f"{s}.downsample.0", bias=False)
+                yield from _bn(f"{d}.downsample_bn", f"{s}.downsample.1")
+
+
+def _attention_layers(dst: str, src: str, names) -> Iterator[Entry]:
+    for name in names:
+        yield from _wb(f"{dst}.{name}", f"{src}.{name}")
+
+
+def _ffn_and_norms(dst: str, src: str) -> Iterator[Entry]:
+    yield from _wb(f"{dst}.ffn.fc1", f"{src}.ffns.0.layers.0.0")
+    yield from _wb(f"{dst}.ffn.fc2", f"{src}.ffns.0.layers.1")
+    for n in range(3):
+        yield from _wb(f"{dst}.norm{n + 1}", f"{src}.norms.{n}")
+
+
+def bevformer_key_map(cfg: BEVFormerConfig) -> Iterator[Entry]:
+    """Every tensor of `BEVFormer(cfg)`'s floating-point state_dict with the
+    upstream key that holds it."""
+    yield from _resnet(cfg, "img_backbone", "img_backbone")
+    for i in range(len(cfg.backbone_out_indices)):
+        yield from _wb(f"img_neck.lateral{i}", f"img_neck.lateral_convs.{i}.conv")
+    for i in range(cfg.num_levels):
+        yield from _wb(f"img_neck.fpn{i}", f"img_neck.fpn_convs.{i}.conv")
+
+    h = "pts_bbox_head"
+    yield f"{h}.bev_embedding", f"{h}.bev_embedding.weight", None
+    yield f"{h}.query_embedding", f"{h}.query_embedding.weight", None
+    for table in ("row_embed", "col_embed"):
+        yield f"{h}.positional_encoding.{table}", f"{h}.positional_encoding.{table}.weight", None
+    for i in range(cfg.decoder_layers):
+        # cls branch: Linear(0) LayerNorm(1) ReLU Linear(3) LayerNorm(4) ReLU Linear(6)
+        for name, n in (("fc1", 0), ("ln1", 1), ("fc2", 3), ("ln2", 4), ("out", 6)):
+            yield from _wb(f"{h}.cls_branch{i}.{name}", f"{h}.cls_branches.{i}.{n}")
+        # reg branch: Linear(0) ReLU Linear(2) ReLU Linear(4)
+        for name, n in (("fc1", 0), ("fc2", 2), ("out", 4)):
+            yield from _wb(f"{h}.reg_branch{i}.{name}", f"{h}.reg_branches.{i}.{n}")
+
+    t = f"{h}.transformer"
+    yield f"{t}.cams_embeds", f"{t}.cams_embeds", None
+    yield f"{t}.level_embeds", f"{t}.level_embeds", None
+    yield from _wb(f"{t}.reference_points", f"{t}.reference_points")
+    yield from _wb(f"{t}.can_bus_fc1", f"{t}.can_bus_mlp.0")
+    yield from _wb(f"{t}.can_bus_fc2", f"{t}.can_bus_mlp.2")
+    yield from _wb(f"{t}.can_bus_norm", f"{t}.can_bus_mlp.norm")
+
+    msda = ("sampling_offsets", "attention_weights", "value_proj")
+    for i in range(cfg.encoder_layers):
+        d, s = f"{t}.encoder.layer{i}", f"{t}.encoder.layers.{i}"
+        yield from _attention_layers(f"{d}.self_attn", f"{s}.attentions.0",
+                                     msda + ("output_proj",))
+        yield from _attention_layers(f"{d}.cross_attn.deformable_attention",
+                                     f"{s}.attentions.1.deformable_attention", msda)
+        yield from _wb(f"{d}.cross_attn.output_proj", f"{s}.attentions.1.output_proj")
+        yield from _ffn_and_norms(d, s)
+    for i in range(cfg.decoder_layers):
+        d, s = f"{t}.decoder.layer{i}", f"{t}.decoder.layers.{i}"
+        mha = f"{s}.attentions.0.attn"
+        for third, name in enumerate(("q_proj", "k_proj", "v_proj")):
+            yield f"{d}.self_attn.{name}.weight", f"{mha}.in_proj_weight", third
+            yield f"{d}.self_attn.{name}.bias", f"{mha}.in_proj_bias", third
+        yield from _wb(f"{d}.self_attn.out_proj", f"{mha}.out_proj")
+        yield from _attention_layers(f"{d}.cross_attn", f"{s}.attentions.1",
+                                     msda + ("output_proj",))
+        yield from _ffn_and_norms(d, s)
+
+
+def _config_of(model_or_cfg) -> BEVFormerConfig:
+    cfg = getattr(model_or_cfg, "cfg", model_or_cfg)
+    if not isinstance(cfg, BEVFormerConfig):
+        raise TypeError("load_bevformer_checkpoint: expected a BEVFormer model or its "
+                        f"BEVFormerConfig, got {type(model_or_cfg).__name__}")
+    return cfg
+
+
+def load_bevformer_checkpoint(model_or_cfg, state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """An upstream-layout BEVFormer `state_dict` (tensors or numpy arrays;
+    a DataParallel `module.` prefix is dropped) -> the port's state_dict for
+    `BEVFormer(cfg)`, float32, which `BEVFormerEngine(cfg, state_dict=...)`
+    and `load_state_dict(strict=True)` take.  Given a model, its `cfg` is
+    used; the model itself is not touched.  Raises `KeyError` naming a
+    missing or an unknown key.  Scales of the quantized tiers are not part of
+    an upstream checkpoint: calibrate after loading."""
+    cfg = _config_of(model_or_cfg)
+    sd = {k.replace("module.", ""): v for k, v in state_dict.items()}
+    out: Dict[str, torch.Tensor] = {}
+    used = set()
+    for dst, src, third in bevformer_key_map(cfg):
+        if src not in sd:
+            raise KeyError(f"load_bevformer_checkpoint: the checkpoint has no key '{src}' "
+                           f"(needed for '{dst}' of BEVFormer-{cfg.name})")
+        t = torch.as_tensor(np.asarray(sd[src]) if not torch.is_tensor(sd[src]) else sd[src])
+        if third is not None:
+            if t.shape[0] % 3:
+                raise KeyError(f"load_bevformer_checkpoint: '{src}' {tuple(t.shape)} does not "
+                               "split into q, k and v")
+            c = t.shape[0] // 3
+            t = t[third * c:(third + 1) * c]
+        out[dst] = t.detach().to("cpu", torch.float32).clone()
+        used.add(src)
+    unknown = sorted(k for k in sd if k not in used and k not in IGNORED_KEYS
+                     and not k.endswith(IGNORED_SUFFIXES))
+    if unknown:
+        raise KeyError(f"load_bevformer_checkpoint: BEVFormer-{cfg.name} takes no key "
+                       f"'{unknown[0]}'" + (f" (and {len(unknown) - 1} more)"
+                                            if len(unknown) > 1 else ""))
+    return out
+
+
+def upstream_layout(cfg: BEVFormerConfig, port_state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """The inverse renaming, for tests and smoke runs that need a seeded
+    checkpoint in the upstream layout: the floating-point tensors of a
+    port-layout state_dict under their upstream keys (q / k / v joined into
+    in_proj)."""
+    out: Dict[str, torch.Tensor] = {}
+    thirds: Dict[str, list] = {}
+    for dst, src, third in bevformer_key_map(cfg):
+        if third is None:
+            out[src] = port_state_dict[dst].detach().clone()
+        else:
+            thirds.setdefault(src, []).append(port_state_dict[dst].detach())
+    for src, parts in thirds.items():
+        out[src] = torch.cat(parts, dim=0)
+    return out
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The flat state_dict of a `.pth` file, on the CPU."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return dict(ckpt.get("state_dict", ckpt))

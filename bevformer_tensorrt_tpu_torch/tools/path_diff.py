@@ -10,8 +10,9 @@ wrapper swapped for its plain PyTorch version (the reference), the same
 again (what the atomic adds of the camera scatter change from run to run),
 with exactly one op on its CUDA kernel, and with all on their kernels.
 With `--quant int8` the model is calibrated first (`max`, over the same
-frames) and the three int8 kernels are on the path; DCN backbones then need
-`--exclude self_attn/msda_tables dcn_tables`.
+frames) and the int8 kernels are on the path: the product, the MSDA value
+tables, flash attention and, on a DCN backbone, the int8 table of the
+im2col (unless `--exclude` names `dcn_tables`).
 Prints, for each run, the worst relative error against the reference over
 the frames: "max" = max |a - b| / max |b| and "rms" = ||a - b|| / ||b||, for
 the BEV embedding and for the class scores and box coordinates of each
@@ -35,16 +36,19 @@ from ..ops import msda as msda_ops
 from ..runtime.engine import BEVFormerEngine
 from ..runtime.synthetic import synthetic_frames
 
-WRAPPERS = {  # op: (module, wrapper, its plain version)
+# op: (module, the function that launches its kernel, its plain version).  The
+# DCN op launches one of its two im2col kernels and multiplies the columns with
+# the weight either way, so the swap is at the im2col.
+WRAPPERS = {
     "msda": (msda_ops, "multi_scale_deformable_attn", "multi_scale_deformable_attn_plain"),
     "flash": (attn_ops, "flash_attention", "qkv_plain"),
-    "dcn": (dcn_ops, "modulated_deform_conv2d", "modulated_deform_conv2d_plain"),
+    "dcn": (dcn_ops, "deform_im2col", "deform_im2col_plain"),
     "int8_gemm": (int8_ops, "int8_matmul", "int8_matmul_plain"),
     "msda_int8": (msda_ops, "multi_scale_deformable_attn_int8",
                   "multi_scale_deformable_attn_int8_plain"),
     "flash_int8": (attn_ops, "flash_attention_int8", "flash_attention_int8_plain"),
+    "dcn_int8": (dcn_ops, "deform_im2col_int8", "deform_im2col_int8_plain"),
 }
-
 QUANT = {"none": False, "qdq": True, "int8": "int8"}
 
 

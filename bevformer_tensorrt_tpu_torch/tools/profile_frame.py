@@ -11,8 +11,8 @@ frames.  Prints the device time per frame by kernel family and the top
 kernels, and the device busy share: the union of the kernels' intervals
 over the profiled window's wall time.  TF32 is off, as in chip_smoke.py.
 With `--quant qdq` or `--quant int8` the model is calibrated first (`max`,
-two frames); a DCN backbone under int8 needs
-`--exclude self_attn/msda_tables dcn_tables`.
+two frames); `--exclude self_attn/msda_tables dcn_tables` keeps a DCN
+backbone's gather tables in floating point under int8.
 """
 from __future__ import annotations
 
@@ -39,6 +39,7 @@ FAMILIES = (  # first match wins
     ("flash int8 kernel", r"flash_int8_kernel"),
     ("msda kernel", r"msda_kernel"),
     ("flash kernel", r"flash_kernel"),
+    ("dcn int8 kernel", r"dcn_im2col_kernel<signed char"),
     ("dcn kernel", r"dcn_im2col_kernel"),
     ("memcpy", r"[Mm]emcpy|[Mm]emset"),
     # cuDNN's direct, implicit-GEMM and FFT convolutions; complex (cf32,

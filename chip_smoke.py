@@ -45,11 +45,32 @@ Phases (any failure exits non-zero before the result lines):
      floating point; the frame latency with float32 and bfloat16
      activations; and the int8 product timed at every shape the frame
      launched.
- 11. BEVFormer-base under quant="int8" with `dcn_tables` excluded, the same
-     way with fewer frames: 12 int8-table and 6 floating-point MSDA, 6 int8
-     flash, 26 DCN launches per frame.
+ 11. BEVFormer-base under quant="int8", default policy (only TSA's tables
+     stay floating point), the same way with fewer frames: 12 int8-table and
+     6 floating-point MSDA, 6 int8 flash, 26 int8-table DCN and no
+     floating-point DCN launches per frame.  Then one frame with
+     `dcn_tables` excluded as well (26 floating-point DCN launches, no
+     int8-table ones), and one BEVFormer-small frame under the default
+     policy (3 + 9 MSDA, 6 int8 flash, 26 int8-table DCN).
  12. One JSON line of per-kernel numbers, the nvidia-smi line of the card,
      and the final `{"ok": true, "device": ...}` line.
+Ahead of phase 10, three phases of their own:
+  a. The int8-table im2col kernel vs its plain version at the stage-3 and
+     stage-4 shapes of base and small and one shape with stride 2, channel
+     groups of 32 and a ragged size, NCHW and NHWC, float32 and bfloat16
+     activations, offsets past every border; the quantizer vs its formula;
+     the kernel alone, the quantization, both, and the floating-point kernel
+     timed at the same shape.
+  b. The gather probes (`gather_rows`, `gather_blend`) vs their plain
+     versions at the base and tiny cross-attention shapes for float32,
+     bfloat16 and int8 rows, `torch.gather` timed beside the row gather and
+     `F.embedding_bag` with per-sample weights beside the blend; the MSDA
+     kernel's own indices replayed through `gather_blend`; then the
+     kernel bench tool, driven through its `main`, with the launch counts
+     set to 0 before and read after.
+  c. One tiny frame from an engine built through
+     `load_bevformer_checkpoint` out of a seeded upstream-layout state_dict,
+     bit for bit equal to the engine holding the same tensors directly.
 
 Kernel times are CUDA-event times of back-to-back launches queued behind a
 device sleep, so host overhead is not counted.  Bounds use the H100 SXM
@@ -85,53 +106,29 @@ from bevformer_tensorrt_tpu_torch.ops import msda as msda_ops
 from bevformer_tensorrt_tpu_torch.quant.fold import attach_quant_scales
 from bevformer_tensorrt_tpu_torch.runtime.engine import BEVFormerEngine
 from bevformer_tensorrt_tpu_torch.runtime.synthetic import synthetic_frames
+from bevformer_tensorrt_tpu_torch.ops import gather_probe as probe_ops
+from bevformer_tensorrt_tpu_torch.runtime.torch_import import (
+    load_bevformer_checkpoint,
+    upstream_layout,
+)
+from bevformer_tensorrt_tpu_torch.tools import kernel_bench
+from bevformer_tensorrt_tpu_torch.tools import kernel_cases as kc
+from bevformer_tensorrt_tpu_torch.tools.kernel_cases import (
+    DCN_INT8_SHAPES,
+    DCN_SHAPES,
+    FLASH_SHAPES,
+    GEMM_SHAPES,
+    MSDA_INT8_SHAPES,
+    MSDA_SHAPES,
+    PEAK_FLOPS,
+    PROBE_SHAPES,
+    bound,
+    device_ms,
+    dtype_name,
+    gemm_case,
+)
 from bevformer_tensorrt_tpu_torch.tools.path_diff import plain_versions, rel_errors, run_frames
 
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int8: 1979e12}
-SLEEP_CYCLES = 20_000_000  # ~10 ms of device sleep ahead of a timed batch
-
-MSDA_SHAPES = {
-    # name: (bs, spatial_shapes, nq, P, ppg, launches per tiny frame, per base frame)
-    "tsa": (2, ((50, 50),), 2500, 4, 1, 3, 0),
-    "sca": (6, ((15, 25),), 896, 8, 4, 3, 0),
-    "decoder": (1, ((50, 50),), 900, 4, 1, 6, 0),
-    "tsa_base": (2, ((200, 200),), 40000, 4, 1, 0, 6),
-    "base4": (6, ((116, 200), (58, 100), (29, 50), (15, 25)), 14080, 8, 4, 0, 6),
-    "decoder_base": (1, ((200, 200),), 900, 4, 1, 0, 6),
-}
-FLASH_SHAPES = {
-    # name: (B, Lq, Lk, d, launches per tiny frame, per base frame)
-    "decoder": (8, 900, 900, 32, 6, 6),
-    "ragged": (8, 777, 611, 32, 0, 0),
-    "d64": (8, 900, 900, 64, 0, 0),
-}
-DCN_SHAPES = {
-    # name: (N, Cin, H, W, Cout, stride, deform groups, launches per base frame, per small frame)
-    "base_s3": (6, 256, 58, 100, 256, 1, 1, 23, 0),
-    "base_s4": (6, 512, 29, 50, 512, 1, 1, 3, 0),
-    "small_s3": (6, 256, 46, 80, 256, 1, 1, 0, 23),
-    "small_s4": (6, 512, 23, 40, 512, 1, 1, 0, 3),
-    "ragged": (2, 48, 37, 53, 40, 2, 2, 0, 0),
-}
-MSDA_INT8_SHAPES = {
-    # int8 tables: SCA and decoder (TSA's stay floating point by the default policy);
-    # name: (shape of MSDA_SHAPES, launches per tiny int8 frame, per base int8 frame)
-    "sca": ("sca", 3, 0), "decoder": ("decoder", 6, 0),
-    "base4": ("base4", 0, 6), "decoder_base": ("decoder_base", 0, 6),
-}
-GEMM_SHAPES = {
-    # name: (M, K, N): x [M, K] int8, w [N, K] int8
-    "dense_decoder": (900, 256, 256),          # every decoder / head projection
-    "dense_bev_ffn": (2500, 256, 512),         # tiny encoder FFN fc1
-    "dense_bev_base": (40000, 256, 256),       # base encoder projections
-    "conv1x1_base_s2": (34800, 256, 1024),     # R101 stage-2 conv3 at base, 6 x 58 x 100
-    "conv3x3_k4608": (2250, 4608, 512),        # R50 stage-4 conv2 at tiny, 6 x 15 x 25
-    "conv3x3_base_s1": (556800, 576, 64),      # R101 stage-1 conv2 at base, 6 x 232 x 400
-    "can_bus_k18": (1, 18, 128),
-    "stem_k147": (576000, 147, 64),            # tiny's 7x7 stem, 6 x 240 x 400
-    "reference_points_n3": (900, 256, 3),
-}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}  # max abs err / max |plain|
 FLASH_INT8_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # a flipped round(p * 127)
 # int8 frames, kernel path against plain path.  The integer products are
@@ -167,29 +164,6 @@ def log(*a):
     print(*a, flush=True)
 
 
-def device_ms(fn, n=20, repeats=5):
-    """Median over `repeats` of the mean device time of `n` back-to-back
-    calls, queued behind a device sleep so the host never starves the card."""
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(repeats):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
-        s.record()
-        for _ in range(n):
-            fn()
-        e.record()
-        e.synchronize()
-        out.append(s.elapsed_time(e) / n)
-    return float(np.median(out))
-
-
-def bound(nbytes, flops, dtype):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def max_err(got, want, dtype, what):
     err = float((got.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
@@ -198,41 +172,18 @@ def max_err(got, want, dtype, what):
     return err
 
 
-def dtype_name(dtype):
-    return str(dtype).split(".")[-1]
-
-
-def msda_inputs(name, dtype, gen, dev):
-    bs, shapes, nq, P, ppg = MSDA_SHAPES[name][:5]
-    H, ch, L = 8, 32, len(shapes)
-    keys = sum(h * w for h, w in shapes)
-    value = torch.randn(bs, keys, H, ch, generator=gen)
-    ref = torch.rand(bs, nq, 1, 2 * ppg, generator=gen) * 1.2 - 0.1
-    off = torch.randn(bs, nq, H, L * P * 2, generator=gen) * 3
-    far = torch.rand(off.shape, generator=gen) < 0.05  # well past the borders
-    off = torch.where(far, torch.sign(off) * 300.0, off)
-    attn = torch.randn(bs, nq, H, L * P, generator=gen)
-    return ([t.to(dev, dtype) for t in (value,)] + [ref.to(dev)]
-            + [t.to(dev, dtype) for t in (off, attn)]), shapes
-
-
 def phase_msda(dev, gen):
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for name, spec in MSDA_SHAPES.items():
-            (value, ref, off, attn), shapes = msda_inputs(name, dtype, gen, dev)
+            (value, ref, off, attn), shapes = kc.msda_inputs(spec, dtype, gen, dev)
             got = msda_ops.multi_scale_deformable_attn(value, ref, off, attn, shapes)
             want = msda_ops.multi_scale_deformable_attn_plain(value, ref, off, attn, shapes)
             torch.cuda.synchronize()
             err = max_err(got, want, dtype, f"msda {name} {dtype}")
             bs, _, nq, P, _, per_tiny, per_base = spec
-            H, ch, L, esz = 8, 32, len(shapes), value.element_size()
-            # the rows this run's queries can gather (one ch-wide row per corner)
-            # where they are fewer than the value table
-            gathered = min(value.numel(), bs * nq * H * L * P * 4 * ch)
-            nbytes = ((gathered + off.numel() + attn.numel()) * esz + ref.numel() * 4
-                      + bs * nq * H * ch * esz)
-            flops = bs * nq * H * L * P * 4 * ch * 2
+            esz = value.element_size()
+            nbytes, flops, gathered = kc.msda_work(value, ref, off, attn, shapes)
             b_ms, b_by = bound(nbytes, flops, dtype)
             ms = device_ms(lambda: msda_ops.multi_scale_deformable_attn(value, ref, off, attn, shapes))
             plain_ms = device_ms(
@@ -254,16 +205,12 @@ def phase_flash(dev, gen):
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for name, (B, Lq, Lk, d, per_tiny, per_base) in FLASH_SHAPES.items():
-            q = torch.randn(B, Lq, d, generator=gen).to(dev, dtype)
-            k = torch.randn(B, Lk, d, generator=gen).to(dev, dtype)
-            v = torch.randn(B, Lk, d, generator=gen).to(dev, dtype)
+            q, k, v = kc.flash_inputs((B, Lq, Lk, d), dtype, gen, dev)
             got = attn_ops.flash_attention(q, k, v)
             want = attn_ops.qkv_plain(q, k, v)
             torch.cuda.synchronize()
             err = max_err(got, want, dtype, f"flash {name} {dtype}")
-            esz = q.element_size()
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) * esz
-            b_ms, b_by = bound(nbytes, 4 * B * Lq * Lk * d, dtype)
+            b_ms, b_by = bound(*kc.flash_work(q, k, v), dtype)
             ms = device_ms(lambda: attn_ops.flash_attention(q, k, v))
             plain_ms = device_ms(lambda: attn_ops.qkv_plain(q, k, v), n=5)
             lib_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
@@ -283,21 +230,15 @@ def phase_dcn(dev, gen):
     the weight) against the per-tap plain op."""
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for name, (N, Cin, H, W, Cout, stride, dg, per_base, per_small) in DCN_SHAPES.items():
+        for name, spec in DCN_SHAPES.items():
+            N, Cin, H, W, Cout, stride, dg, per_base, per_small = spec
             Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
-            x = torch.randn(N, Cin, H, W, generator=gen).to(dev, dtype)
-            off = torch.randn(N, 2 * dg * 9, Ho, Wo, generator=gen) * 2
-            far = torch.rand(off.shape, generator=gen) < 0.02  # well past the borders
-            off = torch.where(far, torch.sign(off) * 300.0, off).to(dev, dtype)
-            mask = torch.rand(N, dg * 9, Ho, Wo, generator=gen).to(dev, dtype)
-            weight = (torch.randn(Cout, Cin, 3, 3, generator=gen) / (Cin * 9) ** 0.5).to(dev)
-            geo = dict(stride=stride, padding=1, dilation=1, deform_groups=dg)
+            x, off, mask, weight, geo = kc.dcn_inputs(spec, dtype, gen, dev)
 
             col = dcn_ops.deform_im2col(x, off, mask, (3, 3), **geo)
             col_plain = dcn_ops.deform_im2col_plain(x, off, mask, (3, 3), **geo)
             torch.cuda.synchronize()
             err = max_err(col, col_plain, dtype, f"dcn im2col {name} {dtype}")
-            col_bytes = col.numel() * col.element_size()
             del col, col_plain
             got = dcn_ops.modulated_deform_conv2d(x, off, mask, weight, None, groups=1, **geo)
             want = dcn_ops.modulated_deform_conv2d_plain(x, off, mask, weight, None, groups=1,
@@ -306,9 +247,7 @@ def phase_dcn(dev, gen):
             op_err = max_err(got, want, dtype, f"dcn op {name} {dtype}")
             del got, want
 
-            esz = x.element_size()
-            nbytes = (x.numel() + off.numel() + mask.numel()) * esz + col_bytes
-            flops = 8 * N * 9 * Cin * Ho * Wo  # 4 corner weights, 4 multiply-adds per value
+            nbytes, flops, col_bytes = kc.dcn_work(spec, x.element_size())
             b_ms, b_by = bound(nbytes, flops, dtype)
             gemm_flops = 2 * N * Cout * 9 * Cin * Ho * Wo
             ms = device_ms(lambda: dcn_ops.deform_im2col(x, off, mask, (3, 3), **geo))
@@ -345,14 +284,6 @@ def phase_dcn(dev, gen):
     return rows
 
 
-def gemm_case(M, K, N, gen, dev):
-    x = torch.randint(-127, 128, (M, K), generator=gen, dtype=torch.int8).to(dev)
-    w = torch.randint(-127, 128, (N, K), generator=gen, dtype=torch.int8).to(dev)
-    xs = torch.tensor(0.0173, device=dev)
-    ws = (torch.rand(N, generator=gen) * 0.02 + 0.001).to(dev)
-    return x, w, xs, ws
-
-
 def phase_int8_gemm(dev, gen, shapes, counts=None, reps=(20, 5)):
     """The int8 product kernel against its plain version (float64 sums, so
     exact) at each (M, K, N) of `shapes`; float32 output must agree bit for
@@ -367,8 +298,7 @@ def phase_int8_gemm(dev, gen, shapes, counts=None, reps=(20, 5)):
         if not torch.equal(got, want):
             raise AssertionError(f"int8 gemm {name} {(M, K, N)}: max abs err {err}, not exact")
         del want
-        nbytes = M * K + N * K + 4 + 4 * N + 4 * M * N
-        b_ms, b_by = bound(nbytes, 2 * M * N * K, torch.int8)
+        b_ms, b_by = bound(*kc.gemm_work(M, K, N), torch.int8)
         ms = device_ms(lambda: int8_ops.int8_matmul(x, w, xs, ws), *reps)
         plain_ms = device_ms(lambda: int8_ops.int8_matmul_plain(x, w, xs, ws), n=2, repeats=3)
         lib_ms = None
@@ -415,22 +345,16 @@ def phase_msda_int8(dev, gen):
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for name, (shape, per_tiny, per_base) in MSDA_INT8_SHAPES.items():
-            (value, ref, off, attn), shapes = msda_inputs(shape, dtype, gen, dev)
+            (value, ref, off, attn), shapes = kc.msda_inputs(MSDA_SHAPES[shape], dtype, gen, dev)
             op = msda_ops.multi_scale_deformable_attn_int8
             got = op(value, ref, off, attn, shapes)
             want = msda_ops.multi_scale_deformable_attn_int8_plain(value, ref, off, attn, shapes)
             torch.cuda.synchronize()
             err = max_err(got, want, dtype, f"msda int8 {name} {dtype}")
             bs, _, nq, P = MSDA_SHAPES[shape][:4]
-            H, ch, L, esz = 8, 32, len(shapes), value.element_size()
-            small = (off.numel() + attn.numel()) * esz + ref.numel() * 4 + bs * nq * H * ch * esz
-            # the function reads the whole floating-point value once (the scale
-            # is an amax over it); the kernel alone reads the int8 rows its
-            # queries can gather, where they are fewer than the table
-            b_ms, b_by = bound(value.numel() * esz + small, bs * nq * H * L * P * 4 * ch * 2, dtype)
-            gathered = min(value.numel(), bs * nq * H * L * P * 4 * ch)
-            kb_ms, kb_by = bound(gathered + bs * H * 4 + small,
-                                 bs * nq * H * L * P * 4 * ch * 2, dtype)
+            whole, alone = kc.msda_int8_work(value, ref, off, attn, shapes)
+            b_ms, b_by = bound(*whole, dtype)
+            kb_ms, kb_by = bound(*alone, dtype)
             table = msda_ops.quantize_value_table(value)
             ms = device_ms(lambda: op(value, ref, off, attn, shapes))
             kernel_ms = device_ms(lambda: op(value, ref, off, attn, shapes, table=table))
@@ -461,9 +385,7 @@ def phase_flash_int8(dev, gen):
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for name, (B, Lq, Lk, d, per_tiny, per_base) in FLASH_SHAPES.items():
-            q = torch.randn(B, Lq, d, generator=gen).to(dev, dtype)
-            k = torch.randn(B, Lk, d, generator=gen).to(dev, dtype)
-            v = torch.randn(B, Lk, d, generator=gen).to(dev, dtype)
+            q, k, v = kc.flash_inputs((B, Lq, Lk, d), dtype, gen, dev)
             got = attn_ops.flash_attention_int8(q, k, v)
             want = attn_ops.flash_attention_int8_plain(q, k, v)
             torch.cuda.synchronize()
@@ -472,11 +394,9 @@ def phase_flash_int8(dev, gen):
             if not np.isfinite(err) or err > FLASH_INT8_TOL[dtype] * scale:
                 raise AssertionError(f"flash int8 {name} {dtype}: max abs err {err} vs {scale}")
             float_err = float((got.float() - attn_ops.qkv_plain(q, k, v).float()).abs().max())
-            esz = q.element_size()
-            ops_n = 4 * B * Lq * Lk * d
-            b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * esz, ops_n, torch.int8)
-            kb_ms, kb_by = bound(q.numel() + k.numel() + v.numel() + 8 + q.numel() * esz, ops_n,
-                                 torch.int8)
+            whole, alone = kc.flash_int8_work(q, k, v)
+            b_ms, b_by = bound(*whole, torch.int8)
+            kb_ms, kb_by = bound(*alone, torch.int8)
             operands = attn_ops.int8_operands(q, k, v)
             ms = device_ms(lambda: attn_ops.flash_attention_int8(q, k, v))
             kernel_ms = device_ms(lambda: attn_ops.flash_attention_int8(q, k, v, operands))
@@ -497,7 +417,248 @@ def phase_flash_int8(dev, gen):
     return rows
 
 
-COUNT_NAMES = ("msda", "flash_attn", "dcn_im2col", "int8_gemm", "msda_int8", "flash_int8")
+def phase_dcn_int8(dev, gen):
+    """The int8 im2col kernel against its plain version, NCHW and NHWC, and
+    the quantizer against its formula.  `ms` is the kernel alone on a table
+    made ahead, `quantize_ms` the plain passes that make the table,
+    `wrapper_ms` both, `float_kernel_ms` the floating-point kernel at the
+    same shape, `op_ms` the whole op under quant="int8" (quantize, im2col,
+    product with the weight)."""
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, spec in DCN_INT8_SHAPES.items():
+            N, Cin, H, W, Cout, stride, dg, per_base, per_small = spec
+            chg = dcn_ops.dcn_ch_group(Cin)
+            errs = {}
+            for layout in ("NHWC", "NCHW"):  # the timings below use the model's NCHW
+                x, off, mask, weight, geo = kc.dcn_inputs(spec, dtype, gen, dev, layout)
+                # one channel group far louder than the rest, one silent
+                c_axis = 3 if layout == "NHWC" else 1
+                x.narrow(c_axis, 0, chg).mul_(7.0)
+                x.narrow(c_axis, Cin - chg, chg).zero_()
+                q, scale = dcn_ops.quantize_dcn_table(x, chg, layout)
+                xg = (x if layout == "NCHW" else x.permute(0, 3, 1, 2)).float()
+                xg = xg.reshape(N, Cin // chg, chg, H * W)
+                want_scale = xg.abs().amax(dim=(2, 3)).clamp_min(1e-12) / 127.0
+                want_q = torch.round(xg / want_scale[:, :, None, None]).clamp(-127, 127)
+                want_q = want_q.reshape(N, Cin, H, W).to(torch.int8)
+                got_q = q if layout == "NCHW" else q.permute(0, 3, 1, 2)
+                if not (torch.equal(scale, want_scale) and torch.equal(got_q, want_q)
+                        and bool((got_q[:, Cin - chg:] == 0).all())):
+                    raise AssertionError(f"dcn int8 quantizer {name} {layout} {dtype}")
+                col = dcn_ops.deform_im2col_int8(q, scale, off, mask, (3, 3), **geo)
+                col_plain = dcn_ops.deform_im2col_int8_plain(q, scale, off, mask, (3, 3), **geo)
+                torch.cuda.synchronize()
+                errs[layout] = max_err(col, col_plain, dtype,
+                                       f"dcn int8 im2col {name} {layout} {dtype}")
+                del col, col_plain
+            got = dcn_ops.modulated_deform_conv2d(x, off, mask, weight, None, quant="int8", **geo)
+            want = dcn_ops.modulated_deform_conv2d_plain(x, off, mask, weight, None,
+                                                         quant="int8", **geo)
+            full = dcn_ops.modulated_deform_conv2d(x, off, mask, weight, None, **geo)
+            torch.cuda.synchronize()
+            op_err = max_err(got, want, dtype, f"dcn int8 op {name} {dtype}")
+            table_err = float((got.float() - full.float()).abs().max() / full.float().abs().max())
+            if not 1e-4 < table_err < 5e-2:
+                raise AssertionError(f"dcn int8 op {name} {dtype}: {table_err} from the "
+                                     "floating-point op; the int8 table is not in use")
+            del got, want, full
+
+            esz = x.element_size()
+            nbytes, flops, col_bytes = kc.dcn_work(spec, esz, 1, scale.numel() * 4)
+            b_ms, b_by = bound(nbytes, flops, dtype)
+            wb_ms, _ = bound(*kc.dcn_work(spec, esz)[:2], dtype)  # the wrapper reads x itself
+            ms = device_ms(lambda: dcn_ops.deform_im2col_int8(q, scale, off, mask, (3, 3), **geo))
+            quantize_ms = device_ms(lambda: dcn_ops.quantize_dcn_table(x, chg))
+            wrapper_ms = device_ms(lambda: dcn_ops.deform_im2col_int8(
+                *dcn_ops.quantize_dcn_table(x, chg), off, mask, (3, 3), **geo))
+            float_ms = device_ms(lambda: dcn_ops.deform_im2col(x, off, mask, (3, 3), **geo))
+            op_ms = device_ms(lambda: dcn_ops.modulated_deform_conv2d(
+                x, off, mask, weight, None, quant="int8", **geo))
+            plain_ms = device_ms(lambda: dcn_ops.deform_im2col_int8_plain(
+                q, scale, off, mask, (3, 3), **geo), n=2, repeats=3)
+            row = dict(shape=name, dtype=dtype_name(dtype), x=[N, Cin, H, W], Cout=Cout,
+                       stride=stride, ch_group=chg,
+                       launches_per_frame={"base": per_base, "small": per_small},
+                       max_abs_err=errs["NCHW"], max_abs_err_nhwc=errs["NHWC"],
+                       op_max_abs_err=op_err, err_vs_float_op=table_err, ms=ms,
+                       quantize_ms=quantize_ms, wrapper_ms=wrapper_ms, float_kernel_ms=float_ms,
+                       op_ms=op_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       wrapper_bound_ms=wb_ms, library_ms=None, column_mb=col_bytes / 1e6)
+            rows.append(row)
+            log(f"dcn int8 {name:9s} {row['dtype']:9s} err NCHW {errs['NCHW']:.3e} NHWC "
+                f"{errs['NHWC']:.3e} op {op_err:.3e} (vs float op {table_err:.3e})  kernel alone "
+                f"{ms:.4f} ms  quantize {quantize_ms:.4f}  wrapper {wrapper_ms:.4f}  float "
+                f"kernel {float_ms:.4f}  op {op_ms:.4f}  plain {plain_ms:.3f} ms  bound "
+                f"{b_ms * 1e3:.2f} us ({b_by}; wrapper {wb_ms * 1e3:.2f} us)")
+            del x, off, mask, weight, q, scale
+            torch.cuda.empty_cache()
+    return rows
+
+
+PROBE_SPAN = {"sca_base": 4, "sca_tiny": 2}  # one locality per shape here; the tool sweeps
+
+
+def phase_probes(dev, gen):
+    """The two gather probes against their plain versions (bit for bit for
+    the row gather; float32 sums in another order for the blend) at the base
+    and tiny cross-attention shapes, `torch.gather` timed beside
+    `gather_rows` and `F.embedding_bag` beside `gather_blend` (and held
+    against it); the MSDA kernel's own gather, replayed through
+    `gather_blend`, against the MSDA plain version; then the kernel bench
+    tool, driven as a user would, as the path that launches them."""
+    rows = {"gather_rows": [], "gather_blend": []}
+    for name, spec in PROBE_SHAPES.items():
+        B, keys, nq, taps, width = spec[:5]
+        idx, w = probe_ops.make_workload(np.random.default_rng(0), B, nq, taps, keys,
+                                         PROBE_SPAN[name], width)
+        idx, w = torch.from_numpy(idx).to(dev), torch.from_numpy(w).to(dev)
+        flat = idx.reshape(B, -1)
+        for dtype in kc.PROBE_DTYPES:
+            table = kc.probe_table(B, keys, dtype, gen, dev)
+            got = probe_ops.gather_rows(table, flat)
+            want = probe_ops.gather_rows_plain(table, flat)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"gather_rows {name} {dtype}: not the gathered rows")
+            del got, want
+            got = probe_ops.gather_blend(table, idx, w)
+            want = probe_ops.gather_blend_plain(table, idx, w)
+            torch.cuda.synchronize()
+            err = max_err(got, want, torch.float32, f"gather_blend {name} {dtype}")
+            del got, want
+            torch.cuda.empty_cache()
+            common = dict(shape=name, dtype=dtype_name(dtype), tables=B, keys=keys, queries=nq,
+                          taps=taps, span=PROBE_SPAN[name])
+            b_ms, b_by = bound(*kc.gather_rows_work(table, flat), torch.float32)
+            ms = device_ms(lambda: probe_ops.gather_rows(table, flat), n=5, repeats=3)
+            lib_ms = device_ms(lambda: probe_ops.gather_rows_plain(table, flat), n=3, repeats=3)
+            rows["gather_rows"].append(dict(common, max_abs_err=0.0, ms=ms, plain_ms=lib_ms,
+                                            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+            log(f"gather_rows  {name:9s} {common['dtype']:9s} exact  kernel {ms:.4f} ms  "
+                f"torch.gather {lib_ms:.4f} ms  bound {b_ms * 1e3:.2f} us ({b_by})")
+            b_ms, b_by = bound(*kc.gather_blend_work(table, idx), torch.float32)
+            ms = device_ms(lambda: probe_ops.gather_blend(table, idx, w), n=5, repeats=3)
+            plain_ms = device_ms(lambda: probe_ops.gather_blend_plain(table, idx, w), n=2,
+                                 repeats=2)
+            # the library's call: float32 sums for float32 rows, bfloat16
+            # weights and output for bfloat16 rows, none for int8 rows
+            lib_ms = lib_err = None
+            library = kc.gather_blend_library(table, idx, w)
+            if library is not None:
+                lib_err = max_err(library().float(), probe_ops.gather_blend(table, idx, w),
+                                  dtype, f"embedding_bag vs gather_blend {name} {dtype}")
+                lib_ms = device_ms(library, n=3, repeats=3)
+            del library
+            rows["gather_blend"].append(dict(common, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                             library_ms=lib_ms, library_max_abs_err=lib_err,
+                                             bound_ms=b_ms, bound_by=b_by))
+            log(f"gather_blend {name:9s} {common['dtype']:9s} err {err:.3e}  kernel {ms:.4f} ms  "
+                f"plain {plain_ms:.4f} ms  embedding_bag "
+                f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}  "
+                f"bound {b_ms * 1e3:.2f} us ({b_by})")
+            del table
+            torch.cuda.empty_cache()
+        del idx, w, flat
+
+    # MSDA's own gather through the probe: the same function by another kernel
+    (value, ref, off, attn), shapes = kc.msda_inputs(MSDA_SHAPES["sca"], torch.float32, gen, dev)
+    table, idx, w = kc.msda_gather_operands(value, ref, off, attn, shapes)
+    bs, nq, heads, ch = value.shape[0], ref.shape[1], value.shape[2], value.shape[3]
+    got = probe_ops.gather_blend(table, idx, w).reshape(bs, heads, nq, ch)
+    got = got.permute(0, 2, 1, 3).reshape(bs, nq, heads * ch)
+    want = msda_ops.multi_scale_deformable_attn_plain(value, ref, off, attn, shapes)
+    replay_err = max_err(got, want, torch.float32, "gather_blend on MSDA's indices")
+    log(f"gather_blend on the MSDA kernel's indices and weights (tiny SCA) vs MSDA plain: "
+        f"err {replay_err:.3e}")
+    del value, ref, off, attn, table, idx, w, got, want
+    torch.cuda.empty_cache()
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    if kernel_bench.main(["--parts", "probes", "split", "--shapes", "sca_tiny"]) != 0:
+        raise AssertionError("the kernel bench tool failed")
+    torch.cuda.synchronize()
+    launches = dict(zip(COUNT_NAMES, launch_counts()))
+    log(f"kernel bench tool (probes at the tiny shape, MSDA split at base and tiny) took "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    return dict(rows=rows, launches=launches, msda_replay_err=replay_err)
+
+
+def phase_int8_frame(make_cfg, card, exclude, want, scales=None, calib_frames=1,
+                     latency_frames=3):
+    """One frame of a model under quant="int8" on the kernel path with its
+    launch counts asserted (`want` as in `phase_int8_model`), finite outputs
+    of the right shape, then the frame latency.  `scales` are calibrated
+    here (`max`) unless given."""
+    over = {} if exclude is None else {"quant_exclude": exclude}
+    cfg = make_cfg(quant="int8", **over)
+    name = f"{cfg.name} int8, excluded {list(cfg.quant_exclude)}"
+    frames = synthetic_frames(cfg, np.random.default_rng(0), ("scene-A",))
+    check_rig(cfg, frames)
+    if scales is None:
+        t0 = time.perf_counter()
+        qdq = BEVFormerEngine(make_cfg(quant=True, quant_exclude=cfg.quant_exclude), seed=0)
+        calib = synthetic_frames(cfg, np.random.default_rng(1), ("calib",) * calib_frames)
+        scales = qdq.calibrate(calib, method="max").scales
+        log(f"{name}: {len(scales)} sites calibrated (max, {calib_frames} frame) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del qdq
+        torch.cuda.empty_cache()
+    engine = BEVFormerEngine(cfg, seed=0)
+    attach_quant_scales(engine.model, scales)
+    _, layer_calls, not_int8 = record_gemm_shapes(engine, frames[0])  # also the warm-up
+    if not_int8:
+        raise AssertionError(f"{name}: {not_int8} dense or conv layers do not run int8")
+    want = (*want[:3], layer_calls, *want[3:], 0, 0)
+    reset_launch_counts()
+    (bev, classes, coords), = run_frames(engine, frames)
+    counts = launch_counts()
+    log(f"{name} main path: launches {dict(zip(COUNT_NAMES, counts))}")
+    if counts != want:
+        raise AssertionError(f"{name}: expected {want} launches per frame, got {counts}")
+    shapes = tuple(tuple(t.shape) for t in (bev, classes, coords))
+    if shapes != ((cfg.bev_h * cfg.bev_w, 1, cfg.embed_dims), (6, 1, 900, 10), (6, 1, 900, 10)):
+        raise AssertionError(f"{name} output shapes {shapes}")
+    for what, t in (("bev_embed", bev), ("classes", classes), ("coords", coords)):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{name} {what}: non-finite values")
+    lat = frame_latency(engine, frames, latency_frames)
+    log(f"{name} f32 activations, frame latency: median {np.median(lat):.3f} ms over "
+        f"{len(lat)} frames (min {min(lat):.3f}, max {max(lat):.3f}) on {card}")
+    del engine
+    torch.cuda.empty_cache()
+    return dict(launches=dict(zip(COUNT_NAMES, counts)), latency_ms_median=float(np.median(lat)),
+                latency_ms=lat, int8_layer_calls_per_frame=layer_calls)
+
+
+def phase_checkpoint(card):
+    """One tiny frame from an engine built through `load_bevformer_checkpoint`
+    out of a seeded state_dict in the upstream layout, against the engine
+    that holds the same tensors in the port's layout: bit for bit."""
+    cfg = bevformer_tiny()
+    frames = synthetic_frames(cfg, np.random.default_rng(0), ("scene-A",))
+    direct = BEVFormerEngine(cfg, seed=0)
+    port_sd = {k: v.detach().cpu() for k, v in direct.model.state_dict().items()}
+    upstream = upstream_layout(cfg, port_sd)
+    upstream["img_backbone.bn1.num_batches_tracked"] = torch.tensor(0)  # as real files carry
+    loaded_sd = load_bevformer_checkpoint(cfg, upstream)
+    if sorted(loaded_sd) != sorted(port_sd) or not all(
+            torch.equal(loaded_sd[k], port_sd[k]) for k in port_sd):
+        raise AssertionError("checkpoint loader: tensors differ from the port-layout state_dict")
+    loaded = BEVFormerEngine(cfg, state_dict=loaded_sd)
+    want, got = run_frames(direct, frames)[0], run_frames(loaded, frames)[0]
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("checkpoint loader: the loaded engine's frame differs")
+    log(f"tiny through load_bevformer_checkpoint: {len(upstream)} upstream keys -> "
+        f"{len(loaded_sd)} tensors, one frame bit-identical to the port-layout engine on {card}")
+    del direct, loaded
+    torch.cuda.empty_cache()
+    return dict(upstream_keys=len(upstream), tensors=len(loaded_sd))
+
+
+COUNT_NAMES = ("msda", "flash_attn", "dcn_im2col", "int8_gemm", "msda_int8", "flash_int8",
+               "dcn_im2col_int8", "gather_rows", "gather_blend")
 
 
 def launch_counts():
@@ -538,15 +699,16 @@ def mean_coords_diff(a, b):
 
 
 def phase_int8_model(make_cfg, card, dev, gen, exclude, want, calib_frames, methods, n_frames,
-                     latency_frames, bf16):
+                     latency_frames, bf16, scales_out=None):
     """One model under quant="int8" at full width: calibrate its QDQ tier on
     the card, attach and fold the scales into the int8 tier of the same
     weights, run frames on the kernel path (launch counts read after each)
     and on the plain path, compare with the QDQ simulation and with floating
     point, take the frame latency, and time the int8 product at every shape
     the frame launched.  `want` = per-frame launches (MSDA, flash, DCN,
-    int8-table MSDA, int8 flash); the int8 product's count must equal the
-    forward calls of the int8 layers."""
+    int8-table MSDA, int8 flash, int8-table DCN); the int8 product's count
+    must equal the forward calls of the int8 layers.  The calibrated scales
+    are also put into the dict `scales_out`, where one is given."""
     over = {} if exclude is None else {"quant_exclude": exclude}
     cfg = make_cfg(quant="int8", **over)
     name = f"{cfg.name} int8"
@@ -572,8 +734,8 @@ def phase_int8_model(make_cfg, card, dev, gen, exclude, want, calib_frames, meth
     shapes, layer_calls, not_int8 = record_gemm_shapes(engine, frames[0])  # also the warm-up
     if not_int8:
         raise AssertionError(f"{name}: {not_int8} dense or conv layers do not run int8")
-    msda, flash, dcn, msda8, flash8 = want
-    per_frame_want = (msda, flash, dcn, layer_calls, msda8, flash8)
+    msda, flash, dcn, msda8, flash8, dcn8 = want
+    per_frame_want = (msda, flash, dcn, layer_calls, msda8, flash8, dcn8, 0, 0)
     reset_launch_counts()
     engine.reset()
     per_frame, outs = [], []
@@ -604,6 +766,16 @@ def phase_int8_model(make_cfg, card, dev, gen, exclude, want, calib_frames, meth
                              "its plain version; the kernel must be exact")
     log(f"{name}: backbone and neck outputs are bit-identical with the int8 product on its "
         "kernel and on its plain version")
+    res_backbone = {}
+    if dcn8:
+        # the int8 im2col sums its corners in another order than its plain
+        # version, ahead of every later quantization step of the backbone
+        with plain_versions(["dcn_int8"]), torch.inference_mode():
+            plain_feats = engine.model.img_neck(engine.model.img_backbone(image))
+        errs = [rel_errors(a, b) for a, b in zip(feats, plain_feats)]
+        res_backbone = {"neck_rel_err_dcn_int8_kernel_vs_plain": errs}
+        log(f"{name}: FPN levels with the int8 im2col on its kernel against its plain version: "
+            + ", ".join(f"max {e['max']:.3e} rms {e['rms']:.3e}" for e in errs))
     del feats, plain_feats, image
     d_plain, d_sim = mean_coords_diff(outs, plain), mean_coords_diff(outs, sim)
     log(f"{name}: mean |coords - coords'| kernel path vs plain path {d_plain:.4f}, "
@@ -637,7 +809,10 @@ def phase_int8_model(make_cfg, card, dev, gen, exclude, want, calib_frames, meth
                int8_layer_calls_per_frame=layer_calls, rel_err_kernel_vs_plain=err,
                rel_err_vs_qdq=err_sim, rel_err_vs_float=err_fp, coords_diff_plain=d_plain,
                coords_diff_qdq=d_sim, coords_diff_float=d_fp,
-               latency_ms_median=float(np.median(lat)), latency_ms=lat, peak_memory_mb=peak_mb)
+               latency_ms_median=float(np.median(lat)), latency_ms=lat, peak_memory_mb=peak_mb,
+               **res_backbone)
+    if scales_out is not None:
+        scales_out.update(result.scales)
     if bf16:
         engine16 = BEVFormerEngine(make_cfg(quant="int8", dtype="bfloat16", **over), seed=0)
         attach_quant_scales(engine16.model, result.scales)
@@ -740,7 +915,7 @@ def phase_model(make_cfg, card, per_frame_want, latency_frames, f32_tols=None):
     torch.cuda.synchronize()
     launches = dict(zip(COUNT_NAMES, launch_counts()))
     log(f"{name} main path: cumulative launches after each frame {COUNT_NAMES} {per_frame}")
-    per_frame_want = tuple(per_frame_want) + (0, 0, 0)  # no int8 kernel on this path
+    per_frame_want = tuple(per_frame_want) + (0,) * 6  # no int8 kernel, no probe on this path
     if per_frame != [tuple(n * i for n in per_frame_want) for i in (1, 2, 3)]:
         raise AssertionError(f"{name}: expected {per_frame_want} launches per frame, "
                              f"got {per_frame}")
@@ -807,8 +982,8 @@ def phase_small(card):
     ms = (time.perf_counter() - t0) * 1e3
     counts = launch_counts()
     log(f"small main path: launches (msda, flash, dcn) {counts}; frame {ms:.3f} ms on {card}")
-    if counts != (12, 6, 26, 0, 0, 0):
-        raise AssertionError(f"small: expected (12, 6, 26, 0, 0, 0) launches per frame, "
+    if counts != (12, 6, 26) + (0,) * 6:
+        raise AssertionError(f"small: expected (12, 6, 26) and no other launches per frame, "
                              f"got {counts}")
     shapes = tuple(tuple(t.shape) for t in (bev, classes, coords))
     if shapes != ((cfg.bev_h * cfg.bev_w, 1, cfg.embed_dims), (6, 1, 900, 10), (6, 1, 900, 10)):
@@ -886,6 +1061,7 @@ def main(argv=None):
     gen = torch.Generator().manual_seed(0)
     res = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s)
     seconds = {}
+    base_scales = {}  # calibrated by base_int8, used again by the phase after it
     for phase, fn in (
             ("msda", lambda: phase_msda(dev, gen)),
             ("flash", lambda: phase_flash(dev, gen)),
@@ -897,14 +1073,24 @@ def main(argv=None):
             ("int8_gemm", lambda: phase_int8_gemm(dev, gen, GEMM_SHAPES)),
             ("msda_int8", lambda: phase_msda_int8(dev, gen)),
             ("flash_int8", lambda: phase_flash_int8(dev, gen)),
+            ("dcn_int8", lambda: phase_dcn_int8(dev, gen)),
+            ("probes", lambda: phase_probes(dev, gen)),
+            ("checkpoint", lambda: phase_checkpoint(card)),
             ("tiny_int8", lambda: phase_int8_model(
-                bevformer_tiny, card, dev, gen, exclude=None, want=(3, 0, 0, 9, 6),
+                bevformer_tiny, card, dev, gen, exclude=None, want=(3, 0, 0, 9, 6, 0),
                 calib_frames=4, methods=("max", "entropy"), n_frames=3, latency_frames=6,
                 bf16=True)),
             ("base_int8", lambda: phase_int8_model(
-                bevformer_base, card, dev, gen, exclude=("self_attn/msda_tables", "dcn_tables"),
-                want=(6, 0, 26, 12, 6), calib_frames=2, methods=("max",), n_frames=2,
-                latency_frames=3, bf16=False))):
+                bevformer_base, card, dev, gen, exclude=None, want=(6, 0, 0, 12, 6, 26),
+                calib_frames=2, methods=("max",), n_frames=2, latency_frames=3, bf16=False,
+                scales_out=base_scales)),
+            # the QDQ tier does not see the policy of the tables, so the same
+            # scales serve the variant that keeps the DCN tables floating point
+            ("base_int8_float_dcn_tables", lambda: phase_int8_frame(
+                bevformer_base, card, exclude=("self_attn/msda_tables", "dcn_tables"),
+                want=(6, 0, 26, 12, 6, 0), scales=base_scales)),
+            ("small_int8", lambda: phase_int8_frame(
+                bevformer_small, card, exclude=None, want=(3, 0, 0, 9, 6, 26)))):
         t0 = time.perf_counter()
         res[phase] = fn()
         seconds[phase] = time.perf_counter() - t0
@@ -959,8 +1145,41 @@ def main(argv=None):
                      also=("base", base8["launches"]["flash_int8"]), extra=extra,
                      note=quantize_note),
     ]
+    small8, probes = res["small_int8"], res["probes"]
+    kernels.append(kernel_entry(
+        "dcn_im2col_int8", "bevformer_tensorrt_tpu_torch/csrc/dcn.cu",
+        "bevformer_tensorrt_tpu/ops/pallas/msda_gather.py:247 (packed='int8' from "
+        "bevformer_tensorrt_tpu/ops/dcn.py:347)",
+        res["dcn_int8"], False, "base", base8["launches"]["dcn_im2col_int8"],
+        also=("small", small8["launches"]["dcn_im2col_int8"]),
+        extra=("quantize_ms", "wrapper_ms", "float_kernel_ms", "op_ms", "wrapper_bound_ms"),
+        note="; ms is the kernel alone on a table made ahead, quantize_ms the plain passes "
+             "that make the table, wrapper_ms both, float_kernel_ms the floating-point kernel "
+             "at the same shape, op_ms the whole op under quant='int8'; no library call "
+             "computes a deformable im2col"))
+    for name, replaces in (
+            ("gather_rows", "tools/kernel_bench.py:96 (also tools/gather_bench.py:90, :107 and "
+                            "tools/kernel_bench3.py:77 variant F)"),
+            ("gather_blend", "tools/kernel_bench.py:140 (also tools/kernel_bench2.py:134, :190, "
+                             ":240 and tools/kernel_bench3.py:77 variants A-C)")):
+        rows = probes["rows"][name]
+        main_rows = [r for r in rows if r["shape"] == "sca_base" and r["dtype"] == "float32"]
+        row = main_rows[0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "bevformer_tensorrt_tpu_torch/csrc/gather_probe.cu", "replaces": replaces,
+            "launches": probes["launches"][name],
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+            "max_abs_err_all_shapes": max(r["max_abs_err"] for r in rows),
+            "per": "one launch at the base cross-attention shape (48 tables of 30825 keys, "
+                   "14080 queries, 32 taps, 4 corners), float32 rows, span 4; library_ms is "
+                   "torch.gather for gather_rows and F.embedding_bag with per-sample weights "
+                   "for gather_blend; launches is the count of one run of the kernel bench "
+                   "tool",
+            "shapes": rows})
     for k in kernels:
-        if k["launches"] < 1 or k.get("base_launches", 1) < 1:
+        if k["launches"] < 1 or k.get("base_launches", 1) < 1 or k.get("small_launches", 1) < 1:
             raise AssertionError(f"kernel {k['name']} was not launched on the main path")
     res["kernels"] = kernels
     if args.out:

@@ -16,6 +16,7 @@ from bevformer_tensorrt_tpu.models.detectors.bevformer import BEVFormer as JaxBE
 from bevformer_tensorrt_tpu_torch.configs.bevformer import bevformer_micro, bevformer_tiny
 from bevformer_tensorrt_tpu_torch.core.nms_free_coder import NMSFreeCoder
 from bevformer_tensorrt_tpu_torch.models.detectors.bevformer import BEVFormer
+from bevformer_tensorrt_tpu_torch.ops import dcn as ops_dcn
 from bevformer_tensorrt_tpu_torch.runtime.engine import BEVFormerEngine
 from bevformer_tensorrt_tpu_torch.weights import init_weights, params_from_jax
 from torch_port_helpers import rel
@@ -70,9 +71,10 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 30
+    assert int(res.stdout.split()[-1]) >= 34
     for module in ("quant.qdq", "quant.calibrate", "quant.fold", "ops.int8_matmul",
-                   "tools.calibrate"):
+                   "tools.calibrate", "ops.gather_probe", "runtime.torch_import",
+                   "tools.kernel_bench", "tools.kernel_cases"):
         assert os.path.exists(os.path.join(REPO, "bevformer_tensorrt_tpu_torch",
                                            *module.split(".")) + ".py"), module
 
@@ -85,15 +87,57 @@ def test_engine_refuses_cpu_fallback(monkeypatch):
     assert BEVFormerEngine(bevformer_micro(), device="cpu").device.type == "cpu"
 
 
+def test_new_modules_take_the_plain_path_on_the_cpu(rng):
+    """The loader, the gather probes and the kernel bench tool on CPU inputs
+    launch nothing and build nothing: the probes' wrappers run their plain
+    versions, the loader only renames tensors, and the tool asks for the CPU
+    by name (without it, and without a card, it raises)."""
+    from bevformer_tensorrt_tpu_torch import ops
+    from bevformer_tensorrt_tpu_torch.ops import _cuda, gather_probe
+    from bevformer_tensorrt_tpu_torch.runtime.torch_import import (
+        load_bevformer_checkpoint,
+        upstream_layout,
+    )
+    from bevformer_tensorrt_tpu_torch.tools import kernel_bench
+
+    assert len(_cuda.KERNELS) == 6 and len(ops.KERNEL_WRAPPERS) == 9
+    ops.reset_launch_counts()
+    table = torch.from_numpy(rng.standard_normal((2, 30, 32)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 30, (2, 6, 4, 4)).astype(np.int32))
+    w = torch.ones(2, 6, 4, 4)
+    assert torch.equal(ops.gather_rows(table, idx.reshape(2, -1)),
+                       gather_probe.gather_rows_plain(table, idx.reshape(2, -1)))
+    assert torch.equal(ops.gather_blend(table, idx, w), gather_probe.gather_blend_plain(table, idx, w))
+    cfg = bevformer_micro()
+    model = BEVFormer(cfg)
+    sd = load_bevformer_checkpoint(cfg, upstream_layout(cfg, model.state_dict()))
+    assert all(t.device.type == "cpu" for t in sd.values())
+    assert kernel_bench.main(["--device", "cpu", "--parts", "split"]) == 0
+    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [0] * 9
+    assert not _cuda._libs and not list(_cuda.BUILD.glob("*.so"))
+
+
 def test_int8_refusals():
-    """What the quantized tiers still refuse: the int8 DCN gather table
-    (a DCN backbone under "int8" unless `dcn_tables` is excluded), an "int8"
-    forward without calibrated scales, and an unknown `quant`."""
+    """What the quantized tiers still refuse: an "int8" forward without
+    calibrated scales, and an unknown `quant`.  A DCN backbone under "int8"
+    is no longer refused: it builds under the default policy with the int8
+    gather table on every DCN block, and `dcn_tables` in the policy selects
+    the floating-point table."""
+    from bevformer_tensorrt_tpu_torch.models.backbones.resnet import DeformConv2d
+
     dcn = dict(dcn_stages=(False, False, True, True))
-    with pytest.raises(NotImplementedError, match="int8 gather table of the DCN"):
-        BEVFormer(bevformer_micro(quant="int8", **dcn))
-    BEVFormer(bevformer_micro(quant="int8", quant_exclude=("dcn_tables",), **dcn))
-    BEVFormer(bevformer_micro(quant=True, **dcn))
+
+    def tables(model):
+        return {m.int8_table for m in model.modules() if isinstance(m, DeformConv2d)}
+
+    assert tables(BEVFormer(bevformer_micro(quant="int8", **dcn))) == {True}
+    assert tables(BEVFormer(bevformer_micro(quant="int8", quant_exclude=("dcn_tables",),
+                                            **dcn))) == {False}
+    assert tables(BEVFormer(bevformer_micro(quant=True, **dcn))) == {False}
+    with pytest.raises(ValueError, match="quant"):
+        ops_dcn.modulated_deform_conv2d(torch.zeros(1, 32, 4, 4), torch.zeros(1, 18, 4, 4),
+                                        torch.zeros(1, 9, 4, 4), torch.zeros(8, 32, 3, 3),
+                                        quant="int4")
     assert bevformer_tiny(quant="int8").quant_exclude == ("self_attn/msda_tables",)
     engine = BEVFormerEngine(bevformer_micro(quant="int8"), device="cpu")
     cfg = engine.cfg
@@ -135,8 +179,8 @@ def test_every_flax_leaf_of_a_dcn_model_is_consumed():
 def test_small_and_base_build():
     """Both configs construct at full width (R101 caffe style, DCN on stages
     3-4), load the JAX package's variables strictly at reduced depth and
-    size, and refuse "int8" under the default policy, which leaves the int8
-    DCN table on."""
+    size, and build under "int8" with the default policy, which leaves the
+    int8 table on all 26 DCN blocks."""
     from bevformer_tensorrt_tpu.configs import bevformer as jax_configs
     from bevformer_tensorrt_tpu_torch.configs import bevformer as configs
     from bevformer_tensorrt_tpu_torch.models.backbones.resnet import DeformConv2d
@@ -155,8 +199,9 @@ def test_small_and_base_build():
         small = BEVFormer(getattr(configs, fn)(**reduced))
         small.load_state_dict(sd, strict=True)
         assert len(sd) == len(jax.tree_util.tree_leaves(variables))
-        with pytest.raises(NotImplementedError, match="int8 gather table of the DCN"):
-            BEVFormer(getattr(configs, fn)(quant="int8"))
+        int8 = BEVFormer(getattr(configs, fn)(quant="int8"))
+        assert [m.int8_table for m in int8.modules() if isinstance(m, DeformConv2d)] == [True] * 26
+        del int8
 
 
 def test_seeded_init_fills_deform_conv():
@@ -194,8 +239,10 @@ def test_seeded_init_is_deterministic():
     ("void cutlass__5x_cudnn::Kernel<cutlass_tensorop_bf16_s16816fprop_optimized_bf16>",
      "convolution"),
     ("void (anonymous namespace)::msda_kernel<float, 1>(float const*)", "msda kernel"),
-    ("void (anonymous namespace)::dcn_im2col_kernel<float>(float const*, float const*)",
+    ("void (anonymous namespace)::dcn_im2col_kernel<float, float>(float const*, float const*)",
      "dcn kernel"),
+    ("void (anonymous namespace)::dcn_im2col_kernel<signed char, __nv_bfloat16>(signed char const*)",
+     "dcn int8 kernel"),
     ("void (anonymous namespace)::int8_gemm_kernel<float>(signed char const*)",
      "int8 gemm kernel"),
     ("void (anonymous namespace)::msda_kernel<signed char, float, 1>(signed char const*)",
@@ -227,20 +274,33 @@ def test_plain_versions_swap_and_restore():
     """The measuring aid of tools/path_diff.py swaps the named wrappers for
     their plain versions inside the block only, also when the block raises."""
     from bevformer_tensorrt_tpu_torch import ops
-    from bevformer_tensorrt_tpu_torch.ops import attention, dcn, int8_matmul, msda
+    from bevformer_tensorrt_tpu_torch.ops import _cuda, attention, dcn, int8_matmul, msda
     from bevformer_tensorrt_tpu_torch.tools.path_diff import WRAPPERS, compare, plain_versions
 
     wrappers = (msda.multi_scale_deformable_attn, attention.flash_attention,
                 dcn.modulated_deform_conv2d)
     six = [getattr(mod, name) for mod, name, _ in WRAPPERS.values()]
-    assert six == list(ops.KERNEL_WRAPPERS)  # every counted wrapper can be swapped
+    # every counted wrapper of the models can be swapped, the DCN op at the
+    # im2col that holds its kernel; the last two counted wrappers are the
+    # probes of the kernel bench tool, which no model calls
+    counted = list(ops.KERNEL_WRAPPERS[:7])
+    assert counted[2] is dcn.modulated_deform_conv2d
+    counted[2] = dcn.deform_im2col
+    assert six == counted and len(ops.KERNEL_WRAPPERS) == 9
+    assert ops.KERNEL_WRAPPERS[7:] == (ops.gather_rows, ops.gather_blend)
+    assert _cuda.KERNELS == ("msda", "flash_attn", "dcn", "int8_gemm", "flash_attn_int8",
+                             "gather_probe")
+    assert all((_cuda.CSRC / f"{name}.cu").exists() for name in _cuda.KERNELS)
     with plain_versions():
+        assert dcn.deform_im2col_int8 is dcn.deform_im2col_int8_plain
         assert int8_matmul.int8_matmul is int8_matmul.int8_matmul_plain
         assert msda.multi_scale_deformable_attn_int8 is msda.multi_scale_deformable_attn_int8_plain
         assert attention.flash_attention_int8 is attention.flash_attention_int8_plain
     assert [getattr(mod, name) for mod, name, _ in WRAPPERS.values()] == six
     with plain_versions(["dcn"]):
-        assert dcn.modulated_deform_conv2d is dcn.modulated_deform_conv2d_plain
+        assert dcn.deform_im2col is dcn.deform_im2col_plain
+        assert dcn.deform_im2col_int8 is not dcn.deform_im2col_int8_plain
+        assert dcn.modulated_deform_conv2d is wrappers[2]
         assert msda.multi_scale_deformable_attn is wrappers[0]
     with pytest.raises(RuntimeError):
         with plain_versions():

@@ -9,7 +9,10 @@ Float32 holds a relative error of 1e-5 (summation order only); bfloat16
 outputs may differ by one bfloat16 rounding step (1e-2 relative).  The int8
 product is exact, so its float32 output equals the plain version's bit for
 bit; the int8 flash kernel may flip a `round(p * 127)` where `expf` differs
-from `torch.exp` in the last bit (1e-4).
+from `torch.exp` in the last bit (1e-4).  The int8-table im2col holds the
+floating-point kernel's bars against its plain version (the same table on
+both sides); the row gather is exact and the blend sums float32 in another
+order (1e-5).
 """
 import pytest
 import torch
@@ -17,6 +20,7 @@ import torch
 from bevformer_tensorrt_tpu_torch import ops
 from bevformer_tensorrt_tpu_torch.ops import attention as attn_ops
 from bevformer_tensorrt_tpu_torch.ops import dcn as dcn_ops
+from bevformer_tensorrt_tpu_torch.ops import gather_probe as probe_ops
 from bevformer_tensorrt_tpu_torch.ops import int8_matmul as int8_ops
 from bevformer_tensorrt_tpu_torch.ops import msda as msda_ops
 
@@ -143,6 +147,94 @@ def test_dcn_kernel_dilation_and_edges(cuda):
     assert got.view(-1)[0] == 0 and (got.view(-1)[5:9] == 0).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+@pytest.mark.parametrize("N,Cin,H,W,Cout,stride", [
+    (2, 64, 29, 50, 64, 1),
+    (3, 96, 37, 53, 40, 2),   # channel groups of 32, stride 2, ragged
+    (1, 256, 16, 130, 24, 1),
+    (2, 32, 5, 3, 9, 1),
+])
+def test_dcn_int8_kernel_matches_plain(cuda, dtype, layout, N, Cin, H, W, Cout, stride):
+    x, off, mask, weight, bias = dcn_case(N, Cin, H, W, Cout, stride, 1, dtype, cuda)
+    chg = dcn_ops.dcn_ch_group(Cin)
+    x[:, :chg] *= 5.0  # groups of unlike scale
+    if layout == "NHWC":
+        x, off, mask = (t.permute(0, 2, 3, 1).contiguous() for t in (x, off, mask))
+    kw = dict(stride=stride, padding=1, dilation=1, deform_groups=1, layout=layout)
+    before = (dcn_ops.deform_im2col_int8.launches, dcn_ops.modulated_deform_conv2d.launches)
+    q, scale = dcn_ops.quantize_dcn_table(x, chg, layout)
+    col = dcn_ops.deform_im2col_int8(q, scale, off, mask, (3, 3), **kw)
+    got = dcn_ops.modulated_deform_conv2d(x, off, mask, weight, bias, groups=1, quant="int8", **kw)
+    torch.cuda.synchronize()
+    assert (dcn_ops.deform_im2col_int8.launches,
+            dcn_ops.modulated_deform_conv2d.launches) == (before[0] + 2, before[1])
+    assert q.dtype == torch.int8 and q.shape == x.shape and tuple(scale.shape) == (N, Cin // chg)
+    want_col = dcn_ops.deform_im2col_int8_plain(q, scale, off, mask, (3, 3), **kw)
+    want = dcn_ops.modulated_deform_conv2d_plain(x, off, mask, weight, bias, groups=1,
+                                                 quant="int8", **kw)
+    assert col.dtype == dtype and col.shape == want_col.shape
+    assert rel(col, want_col) < TOL[dtype]
+    assert got.dtype == dtype and got.shape == want.shape
+    assert rel(got, want) < TOL[dtype]
+    full = dcn_ops.modulated_deform_conv2d(x, off, mask, weight, bias, groups=1, **kw)
+    assert 1e-4 < rel(got, full) < 5e-2  # the int8 table is in use
+    assert dcn_ops.modulated_deform_conv2d.launches == before[1] + 1
+
+
+def test_dcn_int8_takes_the_float_table_where_it_is_not_eligible(cuda):
+    """Two deform groups or a width that 32 does not divide: `quant` is
+    ignored, the floating-point kernel runs, bit for bit the same result."""
+    for Cin, dg in ((48, 1), (64, 2)):
+        x, off, mask, weight, bias = dcn_case(2, Cin, 9, 11, 8, 1, dg, torch.float32, cuda)
+        kw = dict(stride=1, padding=1, dilation=1, deform_groups=dg)
+        before = (dcn_ops.deform_im2col_int8.launches, dcn_ops.modulated_deform_conv2d.launches)
+        got = dcn_ops.modulated_deform_conv2d(x, off, mask, weight, bias, quant="int8", **kw)
+        assert (dcn_ops.deform_im2col_int8.launches,
+                dcn_ops.modulated_deform_conv2d.launches) == (before[0], before[1] + 1)
+        assert torch.equal(got, dcn_ops.modulated_deform_conv2d(x, off, mask, weight, bias, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("B,keys,nq,taps,span", [(48, 375, 896, 8, 2), (5, 3000, 128, 32, 4),
+                                                 (2, 130, 16, 8, 1), (3, 1000, 33, 5, 0)])
+def test_gather_probes_match_plain(cuda, dtype, B, keys, nq, taps, span):
+    import numpy as np
+
+    g = torch.Generator().manual_seed(6)
+    if span:
+        idx, w = probe_ops.make_workload(np.random.default_rng(1), B, nq, taps, keys, span, 25)
+        idx, w = torch.from_numpy(idx).to(cuda), torch.from_numpy(w).to(cuda)
+    else:  # no structure, a ragged tap count, and indices past both ends (clamped)
+        idx = torch.randint(-5, keys + 5, (B, nq, taps, 4), generator=g, dtype=torch.int32).to(cuda)
+        w = torch.randn(B, nq, taps, 4, generator=g).to(cuda)
+    if dtype == torch.int8:
+        table = torch.randint(-127, 128, (B, keys, 32), generator=g, dtype=torch.int8).to(cuda)
+    else:
+        table = torch.randn(B, keys, 32, generator=g).to(cuda, dtype)
+    before = (probe_ops.gather_rows.launches, probe_ops.gather_blend.launches)
+    rows = probe_ops.gather_rows(table, idx.reshape(B, -1))
+    blend = probe_ops.gather_blend(table, idx, w)
+    torch.cuda.synchronize()
+    assert (probe_ops.gather_rows.launches, probe_ops.gather_blend.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert rows.dtype == dtype and torch.equal(rows, probe_ops.gather_rows_plain(
+        table, idx.reshape(B, -1)))
+    want = probe_ops.gather_blend_plain(table, idx, w)
+    assert blend.dtype == torch.float32 and blend.shape == want.shape
+    assert rel(blend, want) < 1e-5
+
+
+def test_gather_rows_takes_other_row_widths(cuda):
+    g = torch.Generator().manual_seed(7)
+    idx = torch.randint(0, 77, (3, 500), generator=g, dtype=torch.int32).to(cuda)
+    for ch, dtype in ((4, torch.float32), (128, torch.float32), (8, torch.bfloat16),
+                      (16, torch.int8), (4, torch.int32)):
+        table = torch.randint(-100, 100, (3, 77, ch), generator=g).to(cuda, dtype)
+        assert torch.equal(probe_ops.gather_rows(table, idx),
+                           probe_ops.gather_rows_plain(table, idx))
+
+
 @pytest.mark.parametrize("M,K,N", [
     (900, 256, 256), (2500, 512, 256), (1, 18, 128), (900, 256, 3), (5000, 147, 64),
     (2250, 4608, 512), (129, 16, 65), (34800, 256, 1024), (77, 576, 27),
@@ -253,6 +345,36 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         msda_ops.multi_scale_deformable_attn_int8(
             value, ref, off, attn, ((6, 7),),
             table=(value.to(torch.int8), torch.ones(1, 3, device=cuda)))
+    x, off, mask, weight, _ = dcn_case(1, 64, 6, 7, 4, 1, 1, torch.float32, cuda)
+    q, scale = dcn_ops.quantize_dcn_table(x, 64)
+    with pytest.raises(TypeError, match="int8"):
+        dcn_ops.deform_im2col_int8(x.cuda(), scale, off, mask, (3, 3))
+    with pytest.raises(ValueError, match="scale"):
+        dcn_ops.deform_im2col_int8(q, scale.repeat(1, 3), off, mask, (3, 3))
+    with pytest.raises(ValueError, match="scale"):
+        dcn_ops.deform_im2col_int8(q, scale.double(), off, mask, (3, 3))
+    with pytest.raises(ValueError, match="contiguous"):
+        dcn_ops.deform_im2col_int8(q.transpose(2, 3).contiguous().transpose(2, 3), scale, off,
+                                   mask, (3, 3))
+    with pytest.raises(ValueError, match="offset"):
+        dcn_ops.deform_im2col_int8(q, scale, off[:, :16].contiguous(), mask, (3, 3))
+    with pytest.raises(TypeError, match="dtype"):
+        dcn_ops.modulated_deform_conv2d(x, off.bfloat16(), mask, weight, quant="int8")
+    with pytest.raises(ValueError, match="quant"):
+        dcn_ops.modulated_deform_conv2d(x, off, mask, weight, quant="int4")
+    table = torch.zeros(2, 20, 32, device=cuda)
+    idx = torch.zeros(2, 4, 3, 4, dtype=torch.int32, device=cuda)
+    ones = torch.ones(2, 4, 3, 4, device=cuda)
+    with pytest.raises(ValueError, match="32 channels"):
+        probe_ops.gather_blend(table[..., :16].contiguous(), idx, ones)
+    with pytest.raises(TypeError, match="dtype"):
+        probe_ops.gather_blend(table.half(), idx, ones)
+    with pytest.raises(ValueError, match="contiguous"):
+        probe_ops.gather_blend(table, idx.transpose(1, 2).contiguous().transpose(1, 2), ones)
+    with pytest.raises(ValueError, match="16"):
+        probe_ops.gather_rows(table[..., :3].contiguous(), idx.reshape(2, -1))
+    with pytest.raises(ValueError, match="one device"):
+        probe_ops.gather_rows(table, idx.reshape(2, -1).cpu())
 
 
 def test_micro_engine_runs_through_the_kernels(cuda):
@@ -269,7 +391,7 @@ def test_micro_engine_runs_through_the_kernels(cuda):
     classes, coords = engine.infer_frame(image, torch.zeros(18), l2i, "scene")
     torch.cuda.synchronize()
     per_frame = (2 * cfg.encoder_layers + cfg.decoder_layers, cfg.decoder_layers)
-    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [*per_frame, 0, 0, 0, 0]
+    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [*per_frame] + [0] * 7
     assert torch.isfinite(classes).all() and torch.isfinite(coords).all()
 
 
@@ -300,7 +422,7 @@ def test_micro_int8_engine_runs_through_the_int8_kernels(cuda):
     for h in hooks:
         h.remove()
     E, D = cfg.encoder_layers, cfg.decoder_layers
-    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [E, 0, 0, len(calls), E + D, D]
+    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [E, 0, 0, len(calls), E + D, D, 0, 0, 0]
     assert torch.isfinite(classes).all() and torch.isfinite(coords).all()
     feats = engine.model.img_backbone(torch.as_tensor(frames[0]["image"][0], device=cuda))
     with plain_versions():
@@ -331,9 +453,46 @@ def test_micro_r101_dcn_engine_runs_through_all_three_kernels(cuda):
     classes, coords = engine.infer_frame(image, torch.zeros(18), l2i, "scene")
     torch.cuda.synchronize()
     assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [
-        2 * cfg.encoder_layers + cfg.decoder_layers, cfg.decoder_layers, 26, 0, 0, 0]
+        2 * cfg.encoder_layers + cfg.decoder_layers, cfg.decoder_layers, 26, 0, 0, 0, 0, 0, 0]
     assert torch.isfinite(classes).all() and torch.isfinite(coords).all()
     with plain_versions():
         engine.reset()
         plain_classes, plain_coords = engine.infer_frame(image, torch.zeros(18), l2i, "scene")
     assert rel(classes, plain_classes) < 1e-4 and rel(coords, plain_coords) < 1e-4
+
+
+def test_micro_r101_dcn_int8_engine_runs_through_the_int8_table_kernel(cuda):
+    """The same backbone under the default int8 policy (head width 32, so the
+    int8 value tables and int8 flash run too): 26 int8-table im2cols and no
+    floating-point one per frame; with `dcn_tables` excluded the other way
+    round."""
+    import numpy as np
+
+    from bevformer_tensorrt_tpu_torch.configs.bevformer import bevformer_micro
+    from bevformer_tensorrt_tpu_torch.quant.fold import attach_quant_scales
+    from bevformer_tensorrt_tpu_torch.runtime.engine import BEVFormerEngine
+    from bevformer_tensorrt_tpu_torch.runtime.synthetic import synthetic_frames
+
+    over = dict(backbone_depth=101, dcn_stages=(False, False, True, True),
+                backbone_out_indices=(1, 2, 3), num_levels=4, num_heads=2)
+    cfg = bevformer_micro(quant="int8", **over)
+    assert cfg.quant_exclude == ("self_attn/msda_tables",)
+    frames = synthetic_frames(cfg, np.random.default_rng(0), ("a", "a"))
+    engine = BEVFormerEngine(cfg, seed=0)
+    scales = engine.calibrate(frames, method="max").scales
+    E, D = cfg.encoder_layers, cfg.decoder_layers
+    ops.reset_launch_counts()
+    classes, coords = engine.infer_frame(**frames[0])
+    torch.cuda.synchronize()
+    counts = [fn.launches for fn in ops.KERNEL_WRAPPERS]
+    assert counts[:3] == [E, 0, 0] and counts[4:] == [E + D, D, 26, 0, 0] and counts[3] > 100
+    assert torch.isfinite(classes).all() and torch.isfinite(coords).all()
+    other = BEVFormerEngine(bevformer_micro(
+        quant="int8", quant_exclude=("self_attn/msda_tables", "dcn_tables"), **over), seed=0)
+    attach_quant_scales(other.model, scales)
+    ops.reset_launch_counts()
+    other_classes, other_coords = other.infer_frame(**frames[0])
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [E, 0, 26, counts[3], E + D, D, 0, 0, 0]
+    drift = float((coords - other_coords).abs().mean())
+    assert 0 < drift < 0.3  # the table is in use; its noise moves the boxes a little

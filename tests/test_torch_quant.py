@@ -167,6 +167,37 @@ def test_policy_excludes_the_same_sites_as_jax(patterns):
         jax_policy.set_quant_exclude(())
 
 
+@pytest.mark.parametrize("patterns", [
+    (), ("self_attn/msda_tables",), ("dcn_tables",), ("stage2_*", "flash"),
+    ("img_backbone/stage3_block1/conv2/dcn_tables",), ("conv2",), ("*block0/conv2/dcn*",),
+])
+def test_dcn_tables_site_resolves_as_in_jax(patterns):
+    """The pseudo-site `<conv2>/dcn_tables` of every DCN block: under "int8"
+    the block takes the int8 gather table exactly where the JAX module asks
+    its op for it, for the same patterns; under QDQ never."""
+    from bevformer_tensorrt_tpu_torch.models.backbones.resnet import DeformConv2d, ResNet
+
+    class Model(torch.nn.Module):
+        def __init__(self, quant):
+            super().__init__()
+            self.img_backbone = ResNet(50, (3,), (False, False, True, True), quant=quant)
+
+    model, qdq = Model("int8"), Model(True)
+    policy.set_quant_exclude(model, patterns)
+    policy.set_quant_exclude(qdq, patterns)
+    blocks = {n: m for n, m in model.named_modules() if isinstance(m, DeformConv2d)}
+    assert len(blocks) == 9
+    jax_policy.set_quant_exclude(patterns)
+    try:
+        for name, block in blocks.items():
+            site = tuple(name.split(".")) + ("dcn_tables",)
+            assert block.path == site[:-1]
+            assert block.int8_table == (jax_policy.effective_quant("int8", site) == "int8"), name
+    finally:
+        jax_policy.set_quant_exclude(())
+    assert not any(m.int8_table for m in qdq.modules() if isinstance(m, DeformConv2d))
+
+
 def test_policy_sidecar_round_trip(tmp_path):
     art = str(tmp_path / "scales.npz")
     assert policy.load_policy(art) == ()
