@@ -15,7 +15,7 @@ import torch.nn.functional as F
 
 from ..ops import int8_matmul as int8_ops
 from ..quant.fake_quant import fake_quant, per_channel_scale
-from ..quant.fold import quantize_weight
+from ..quant.fold import int8_weight_matrix, quantize_weight
 from ..quant.policy import effective_quant
 from ..quant.qdq import QDQ, OptionalBuffers
 
@@ -44,7 +44,9 @@ class _QuantSite(OptionalBuffers):
                folded `wq` / `wscale` buffers when present), the product in
                `ops.int8_matmul` with int32 sums and a fused dequantization,
                the bias added in float32.  Raises without a scale outside
-               calibration.
+               calibration.  The product takes the weight as `wmat`
+               (`quant.fold.int8_weight_matrix`), kept beside the folded
+               `wq` and dropped with it or when a state_dict is loaded.
     `mode` is `quant` resolved under the model's policy
     (`quant.policy.set_quant_exclude`); an excluded layer runs plain."""
 
@@ -60,15 +62,26 @@ class _QuantSite(OptionalBuffers):
             self.qdq_in = QDQ()
         self.register_buffer("wq", None)
         self.register_buffer("wscale", None)
+        self.register_buffer("wmat", None, persistent=False)
 
     def resolve_quant(self, path, exclude) -> None:
         self.path = tuple(path)
         self.mode = effective_quant(self.quant, path, exclude)
 
+    def _load_from_state_dict(self, state_dict, prefix, *args):
+        self.wmat = None  # derived from a `wq` that the load may replace
+        super()._load_from_state_dict(state_dict, prefix, *args)
+
     def _int8_weight(self):
+        """(w operand [out, K padded to K_ALIGN], wscale): the kept matrix of
+        the folded weight (made here once where a load brought `wq`), else
+        the weight quantized on this call."""
         if self.wq is not None:
-            return self.wq, self.wscale
-        return quantize_weight(self.weight)
+            if self.wmat is None:
+                self.wmat = int8_weight_matrix(self.wq)
+            return self.wmat, self.wscale
+        wq, wscale = quantize_weight(self.weight)
+        return int8_weight_matrix(wq), wscale
 
     def _fake_quant_weight(self):
         return fake_quant(self.weight, per_channel_scale(self.weight, axis=0))
@@ -91,9 +104,11 @@ class QDense(nn.Linear, _QuantSite):
             x_scaled, s_in = self.qdq_in(x)
             _check_int8_scale(self, s_in)
             if self.mode == "int8" and s_in is not None:
-                wq, wscale = self._int8_weight()
-                y = int8_ops.int8_matmul(
-                    _quantize_input(x, s_in).reshape(-1, self.in_features), wq, s_in, wscale)
+                wmat, wscale = self._int8_weight()
+                xq = _quantize_input(x, s_in).reshape(-1, self.in_features)
+                if wmat.shape[1] > self.in_features:  # zero columns add nothing
+                    xq = F.pad(xq, (0, wmat.shape[1] - self.in_features))
+                y = int8_ops.int8_matmul(xq, wmat, s_in, wscale)
                 if self.bias is not None:
                     y = y + self.bias
                 return y.reshape(*x.shape[:-1], self.out_features).to(x.dtype)
@@ -141,13 +156,10 @@ class QConv(nn.Conv2d, _QuantSite):
         self._init_quant(quant)
 
     def _int8_forward(self, x, s_in):
-        wq, wscale = self._int8_weight()
+        wmat, wscale = self._int8_weight()
         col, Ho, Wo = int8_im2col(_quantize_input(x, s_in), self.kernel_size, self.stride,
                                   self.padding, int8_ops.K_ALIGN)
-        w2 = wq.permute(0, 2, 3, 1).reshape(self.out_channels, -1)
-        if col.shape[1] > w2.shape[1]:
-            w2 = F.pad(w2, (0, col.shape[1] - w2.shape[1]))
-        y = int8_ops.int8_matmul(col, w2.contiguous(), s_in, wscale)
+        y = int8_ops.int8_matmul(col, wmat, s_in, wscale)
         if self.bias is not None:
             y = y + self.bias
         # channels-last memory under an NCHW shape: no relayout

@@ -7,6 +7,10 @@ accumulation.  Both operands keep the contraction axis last (x [M, K],
 w [N, K], the layout of a dense weight), which is what the tensor cores
 read.  For CPU tensors it runs `int8_matmul_plain`; for CUDA tensors it
 launches the kernel of `csrc/int8_gemm.cu` or raises.
+
+The kernel runs in one of the tile configurations of `GEMM_CONFIGS`, which
+`gemm_config` picks from the shape alone; the operands reach it through TMA
+tensor maps whose arguments `tensor_map_args` states and checks.
 """
 from __future__ import annotations
 
@@ -17,8 +21,56 @@ import torch.nn.functional as F
 
 from . import _cuda
 
-K_ALIGN = 16  # the kernel loads 16 bytes of K at a time
+K_ALIGN = 16  # a TMA row stride is a multiple of 16 bytes
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+STAGE_K = 128  # bytes of K per pipeline stage: one 128-byte swizzle row
+SMEM_LIMIT = 232448  # dynamic shared memory one block may opt into on Hopper
+# name: (consumer warpgroups, tile rows BM = 64 x consumers, tile columns BN,
+# pipeline stages); the order is the `config` index of `int8_gemm_forward`
+GEMM_CONFIGS = {
+    "128x128": (2, 128, 128, 4),   # large products
+    "128x64": (2, 128, 64, 6),     # N <= 64: the stem and stage 1
+    "64x64": (1, 64, 64, 4),       # launch-sized products, two blocks an SM
+}
+SMALL_OUTPUTS = 132 * 128 * 128  # fewer outputs than one 128x128 tile per SM
+SMALL_K = 1024
+
+
+def gemm_config(M: int, N: int, K: int) -> str:
+    """The tile configuration for an (M, K, N) product: a launch-sized
+    product (fewer outputs than one 128x128 tile per SM, and K under
+    SMALL_K) takes 64x64 tiles, to spread over more SMs; otherwise 128x64
+    for N <= 64, else 128x128 (at K 4608 the larger tiles win even where
+    they leave SMs idle: 15.9 against 21.3 us for (2250, 4608, 512) on an
+    H100)."""
+    if M * N < SMALL_OUTPUTS and K < SMALL_K:
+        return "64x64"
+    return "128x64" if N <= 64 else "128x128"
+
+
+def gemm_smem_bytes(config: str) -> int:
+    """Dynamic shared memory of one block, as `Cfg::SMEM` in the source:
+    alignment slack, the ring of x and w tiles, the float32 staging of each
+    consumer's 64 output rows (padded by 8), and two mbarriers a stage."""
+    nc, bm, bn, stages = GEMM_CONFIGS[config]
+    return 1024 + stages * (bm + bn) * STAGE_K + nc * 64 * (bn + 8) * 4 + 2 * stages * 8
+
+
+def tensor_map_args(rows: int, K: int, data_ptr: int, box_rows: int):
+    """What `cuTensorMapEncodeTiled` receives for an int8 [rows, K] operand
+    (K contiguous) read in boxes of STAGE_K bytes x `box_rows` rows with the
+    128-byte swizzle: (global dims, global strides in bytes, box dims),
+    innermost first.  Raises where TMA does not take the operand."""
+    if rows < 1 or K < K_ALIGN:
+        raise ValueError(f"int8 gemm kernel: operand [{rows}, {K}] is empty")
+    if K % K_ALIGN or data_ptr % 16:
+        raise ValueError(f"int8 gemm kernel: TMA needs 16-byte rows and a 16-byte aligned "
+                         f"base, got K {K} at address {data_ptr:#x}")
+    if rows >= 2 ** 31 or K >= 2 ** 31:
+        raise ValueError(f"int8 gemm kernel: operand [{rows}, {K}] exceeds int32 extents")
+    if not 1 <= box_rows <= 256:
+        raise ValueError(f"int8 gemm kernel: box of {box_rows} rows is not in [1, 256]")
+    return (K, rows), (K,), (STAGE_K, box_rows)
 
 
 def int8_matmul_plain(x, w, x_scale, w_scale, out_dtype=torch.float32):
@@ -34,7 +86,7 @@ def int8_matmul_plain(x, w, x_scale, w_scale, out_dtype=torch.float32):
 def _gemm_lib():
     lib = _cuda.load("int8_gemm")
     if lib.int8_gemm_forward.argtypes is None:
-        lib.int8_gemm_forward.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        lib.int8_gemm_forward.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                                           + [ctypes.c_void_p])
         lib.int8_gemm_forward.restype = ctypes.c_int
     return lib
@@ -68,11 +120,16 @@ def _int8_matmul_cuda(x, w, x_scale, w_scale, out_dtype):
         x = x.clone()
     if w.data_ptr() % K_ALIGN:
         w = w.clone()
+    config = gemm_config(M, N, K + pad)
+    _, bm, bn, _ = GEMM_CONFIGS[config]
+    tensor_map_args(M, K + pad, x.data_ptr(), bm)
+    tensor_map_args(N, K + pad, w.data_ptr(), bn)
     lib = _gemm_lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.int8_gemm_forward(x.data_ptr(), w.data_ptr(), x_scale.data_ptr(),
                                 w_scale.data_ptr(), out.data_ptr(), M, N, K + pad,
-                                _OUT_DTYPES[out_dtype], stream)
+                                _OUT_DTYPES[out_dtype], list(GEMM_CONFIGS).index(config),
+                                stream)
     _cuda.check(lib, err, "int8 gemm kernel launch")
     int8_matmul.launches += 1
     return out

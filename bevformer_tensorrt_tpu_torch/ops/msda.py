@@ -88,6 +88,53 @@ def multi_scale_deformable_attn_plain(value, reference_points, sampling_offsets,
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _levels: Dict[tuple, torch.Tensor] = {}
+MSDA_THREADS = 256         # a block of the kernel; one softmax group of taps fits in it
+MSDA_TAPS_PER_BLOCK = 1024  # (query, head, tap) triples a block takes at most
+MSDA_MIN_BLOCKS = 4 * 132  # blocks a launch is spread over where it has the queries: 4 an SM
+SMEM_LIMIT = 232448        # dynamic shared memory one block may opt into on Hopper
+
+
+def msda_launch_geometry(bs: int, nq: int, heads: int, ch: int, L: int, P: int,
+                         value_esz: int, value_ptr: int = 0) -> dict:
+    """How `csrc/msda.cu` is launched for a problem: `lpp`, the taps of a
+    (query, head) padded to a power of two (one softmax group of phase 1);
+    `qt` queries a block, all their heads (MSDA_TAPS_PER_BLOCK taps, fewer
+    where that would leave fewer than MSDA_MIN_BLOCKS blocks); `vw`, the
+    bytes of a value row each lane loads (16 where the row width and the
+    table's address allow, else the largest power of two that both do);
+    `seg`, the row groups that share one output in the blend: the fewest
+    that still give every warp of the block an output, so that one warp
+    instruction reads the rows of neighbouring heads of one query (adjacent
+    in the value's layout where the heads sample nearby keys, as the
+    model's do) and few shuffles combine the shares; `smem`, 8 bytes for
+    each of the four corners of every tap of the block, and 16 after each
+    output's (a bank shift between outputs).  Raises where the kernel does
+    not take the problem."""
+    LP = L * P
+    lpp = 1 << (LP - 1).bit_length()
+    if lpp > MSDA_THREADS:
+        raise ValueError(f"msda kernel: {LP} taps (levels x points) per head; at most "
+                         f"{MSDA_THREADS}")
+    if not 1 <= ch <= 128:
+        raise ValueError(f"msda kernel: ch {ch} is not in [1, 128]")
+    qt = max(1, min(nq, MSDA_TAPS_PER_BLOCK // (heads * lpp), -(-bs * nq // MSDA_MIN_BLOCKS)))
+    smem = 8 * qt * heads * (4 * lpp + 2)  # two int2 of padding after each output's corners
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"msda kernel: {heads} heads x {lpp} taps need {smem} bytes of "
+                         f"shared memory, more than {SMEM_LIMIT}")
+    row = ch * value_esz
+    vw = 16
+    while row % vw or value_ptr % vw:
+        vw //= 2
+    lanes = row // vw
+    rpw = 1  # rows one warp instruction reads
+    while 2 * rpw * lanes <= 32:
+        rpw *= 2
+    seg = 1
+    while seg < rpw and rpw // seg * (MSDA_THREADS // 32) > qt * heads:
+        seg *= 2
+    return dict(qt=qt, threads=MSDA_THREADS, lpp=lpp, vw=vw, seg=seg, smem=smem,
+                lanes_per_row=lanes, rows_per_warp=rpw, blocks=bs * -(-nq // qt))
 
 
 def _level_table(spatial_shapes: Shapes, device) -> torch.Tensor:
@@ -128,9 +175,10 @@ def multi_scale_deformable_attn_int8_plain(value, reference_points, sampling_off
 def _msda_lib():
     lib = _cuda.load("msda")
     if lib.msda_forward.argtypes is None:
-        lib.msda_forward.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        lib.msda_forward.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 14
+                                     + [ctypes.c_void_p])
         lib.msda_forward.restype = ctypes.c_int
-        lib.msda_int8_forward.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+        lib.msda_int8_forward.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 14
                                           + [ctypes.c_void_p])
         lib.msda_int8_forward.restype = ctypes.c_int
     return lib
@@ -165,7 +213,7 @@ def _msda_cuda(value, reference_points, sampling_offsets, attention_weights,
     if (tuple(reference_points.shape) != (bs, nq, 1, 2 * ppg)
             or tuple(attention_weights.shape) != (bs, nq, heads, LP)
             or tuple(sampling_offsets.shape) != (bs, nq, heads, 2 * LP)
-            or LP != L * P or P % ppg or ch > 128):
+            or LP != L * P or P % ppg):
         raise ValueError(
             "msda kernel: shapes value %s ref %s off %s attn %s do not fit L=%d"
             % (tuple(value.shape), tuple(reference_points.shape),
@@ -173,12 +221,7 @@ def _msda_cuda(value, reference_points, sampling_offsets, attention_weights,
     out = torch.empty((bs, nq, heads * ch), dtype=value.dtype, device=value.device)
     if out.numel() == 0:
         return out
-    lib = _msda_lib()
-    levels = _level_table(spatial_shapes, value.device)
-    stream = torch.cuda.current_stream(value.device).cuda_stream
-    tail = (reference_points.data_ptr(), sampling_offsets.data_ptr(),
-            attention_weights.data_ptr(), levels.data_ptr(), out.data_ptr(),
-            bs, nk, nq, heads, ch, L, P, ppg, _DTYPES[value.dtype], stream)
+    table = value
     if int8_table is not None:
         q, scale = quantize_value_table(value) if int8_table is True else int8_table
         if (q.dtype != torch.int8 or q.shape != value.shape or not q.is_contiguous()
@@ -187,6 +230,16 @@ def _msda_cuda(value, reference_points, sampling_offsets, attention_weights,
                 or scale.device != value.device):
             raise ValueError("msda int8 kernel: the table must be int8 of the value's shape "
                              "with a float32 scale [bs, heads], both on the value's device")
+        table = q
+    geo = msda_launch_geometry(bs, nq, heads, ch, L, P, table.element_size(), table.data_ptr())
+    lib = _msda_lib()
+    levels = _level_table(spatial_shapes, value.device)
+    stream = torch.cuda.current_stream(value.device).cuda_stream
+    tail = (reference_points.data_ptr(), sampling_offsets.data_ptr(),
+            attention_weights.data_ptr(), levels.data_ptr(), out.data_ptr(),
+            bs, nk, nq, heads, ch, L, P, ppg, _DTYPES[value.dtype],
+            geo["qt"], geo["threads"], geo["lpp"], geo["vw"], geo["seg"], stream)
+    if int8_table is not None:
         err = lib.msda_int8_forward(q.data_ptr(), scale.data_ptr(), *tail)
         _cuda.check(lib, err, "msda int8 kernel launch")
         multi_scale_deformable_attn_int8.launches += 1

@@ -4,8 +4,9 @@
 The int8 layers (`models/layers.py` QDense / QConv, quant="int8") derive the
 per-output-channel weight scale from the float weight at every forward.
 `fold_int8_weights` computes (wq int8, wscale float32) once into buffers of
-every layer that has a calibrated activation scale; the layers then use the
-folded pair.
+every layer that has a calibrated activation scale, and with them `wmat`,
+the int8 product's weight operand (`int8_weight_matrix`), a derived
+buffer that no state_dict carries; the layers then use the folded pair.
 """
 from __future__ import annotations
 
@@ -13,7 +14,9 @@ from typing import Mapping
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
+from ..ops.int8_matmul import K_ALIGN
 from .qdq import QDQ
 
 
@@ -27,6 +30,17 @@ def quantize_weight(weight: torch.Tensor):
     return wq, wscale
 
 
+def int8_weight_matrix(wq: torch.Tensor) -> torch.Tensor:
+    """The int8 product's w operand for an int8 dense [out, in] or conv
+    OIHW weight: [out, K] contiguous, a conv's taps outermost and channels
+    innermost (OIHW permuted to [O, kh, kw, I], the column order of
+    `models/layers.py::int8_im2col`), K padded with zeros to a multiple of
+    K_ALIGN."""
+    w2 = (wq.permute(0, 2, 3, 1) if wq.dim() == 4 else wq).reshape(wq.shape[0], -1)
+    pad = (-w2.shape[1]) % K_ALIGN
+    return (F.pad(w2, (0, pad)) if pad else w2).contiguous()
+
+
 @torch.no_grad()
 def fold_int8_weights(model: nn.Module) -> nn.Module:
     """Fill `wq` / `wscale` of every quantized layer whose `qdq_in` holds a
@@ -36,6 +50,7 @@ def fold_int8_weights(model: nn.Module) -> nn.Module:
         qdq = getattr(m, "qdq_in", None)
         if isinstance(qdq, QDQ) and qdq.scale is not None and qdq.mode != "off" and m.mode:
             m.wq, m.wscale = quantize_weight(m.weight)
+            m.wmat = int8_weight_matrix(m.wq)
     return model
 
 
@@ -58,5 +73,5 @@ def attach_quant_scales(model: nn.Module, scales: Mapping[str, float]) -> nn.Mod
                                       device=site.amax.device)
     for m in model.modules():
         if getattr(m, "wq", None) is not None:
-            m.wq = m.wscale = None
+            m.wq = m.wscale = m.wmat = None
     return fold_int8_weights(model)

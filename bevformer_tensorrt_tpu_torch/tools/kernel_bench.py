@@ -22,7 +22,10 @@ counterpart on a GPU; what is left is
               and `F.embedding_bag` with per-sample weights beside
               `gather_blend` (float32 and bfloat16 rows; it takes no int8).
   production  the seven kernels of the models at the shapes the models give
-              them (`tools/kernel_cases.py`), each beside its bound.
+              them (`tools/kernel_cases.py`), each beside its bound; the
+              int8 product's rows name the tile configuration and give
+              TOP/s, the fraction of the bound reached and `torch._int_mm`'s
+              time where it takes the shape.
   split       MSDA at its base and tiny cross-attention shapes: the bare
               gather of the rows the kernel reads, the gather with the blend,
               and the whole kernel, at the same indices and weights,
@@ -174,9 +177,17 @@ def run_production(bench, shapes):
                 note="kernel alone, table quantized ahead")
     for name, (M, K, N) in shapes["gemm"].items():
         x, w, xs, ws = kc.gemm_case(M, K, N, gen, dev)
-        bench.emit("production", "int8_gemm", name,
-                   bench.ms(lambda: int8_ops.int8_matmul(x, w, xs, ws)),
-                   (*kc.gemm_work(M, K, N), torch.int8), torch.int8, M=M, K=K, N=N)
+        t = bench.ms(lambda: int8_ops.int8_matmul(x, w, xs, ws))
+        config = int8_ops.gemm_config(M, N, K + (-K) % int8_ops.K_ALIGN)  # K as the wrapper pads it
+        more = dict(M=M, K=K, N=N, config=config)
+        if bench.cuda:  # the rate, the share of the bound, and the library's int32 product
+            wt = w.t()
+            more.update(tops=2 * M * N * K / t / 1e9,
+                        bound_fraction=kc.bound(*kc.gemm_work(M, K, N), torch.int8)[0] / t,
+                        library_ms=(bench.ms(lambda: torch._int_mm(x, wt))
+                                    if kc.int_mm_takes(M, K, N) else None))
+        bench.emit("production", "int8_gemm", name, t,
+                   (*kc.gemm_work(M, K, N), torch.int8), torch.int8, **more)
         del x, w
     if bench.cuda:
         torch.cuda.empty_cache()

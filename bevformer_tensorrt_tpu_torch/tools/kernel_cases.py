@@ -29,6 +29,13 @@ MSDA_SHAPES = {
     "base4": (6, ((116, 200), (58, 100), (29, 50), (15, 25)), 14080, 8, 4, 0, 6),
     "decoder_base": (1, ((200, 200),), 900, 4, 1, 0, 6),
 }
+MSDA_EDGE_SHAPES = {
+    # no model launches these: the kernel's other row widths and taps past a
+    # warp; name: (bs, spatial_shapes, nq, P, ppg, ch), 8 heads
+    "ch16": (2, ((30, 40), (15, 20)), 1000, 4, 2, 16),
+    "ch64": (2, ((50, 50),), 2500, 4, 1, 64),
+    "lp64": (2, ((40, 50), (20, 25), (10, 13), (5, 7)), 700, 16, 4, 32),
+}
 FLASH_SHAPES = {
     # name: (B, Lq, Lk, d, launches per tiny frame, per base frame)
     "decoder": (8, 900, 900, 32, 6, 6),
@@ -66,6 +73,12 @@ GEMM_SHAPES = {
     "can_bus_k18": (1, 18, 128),
     "stem_k147": (576000, 147, 64),            # tiny's 7x7 stem, 6 x 240 x 400
     "reference_points_n3": (900, 256, 3),
+    # edges of the tile configurations: one row, a narrow N on the narrowest
+    # K, K of one 32-byte wgmma step, one row past 132 x 128
+    "edge_m1_k4608": (1, 4608, 64),
+    "edge_n8_k16": (129, 16, 8),
+    "edge_k32": (300, 32, 136),
+    "edge_m_tile_plus_1": (16897, 256, 256),
 }
 PROBE_SHAPES = {
     # the spatial cross-attention gather as tables of 32-channel rows;
@@ -269,6 +282,11 @@ def gemm_case(M, K, N, gen, dev):
 
 def gemm_work(M, K, N):
     return M * K + N * K + 4 + 4 * N + 4 * M * N, 2 * M * N * K
+
+
+def int_mm_takes(M, K, N):
+    """Whether `torch._int_mm` (the library's int8 product) takes the shape."""
+    return M > 16 and K % 8 == 0 and N % 8 == 0
 
 
 # ---- gather probes ------------------------------------------------------------

@@ -8,7 +8,8 @@ Phases (any failure exits non-zero before the result lines):
      port with nvcc (sm_90a), all sources at once; TF32 off.
   1. MSDA kernel vs its plain version on the card, at the shapes of the
      main paths of BEVFormer-tiny and BEVFormer-base (temporal
-     self-attention, spatial cross-attention, decoder cross-attention),
+     self-attention, spatial cross-attention, decoder cross-attention) and
+     at the edges of its launch geometry (ch 16 and 64, 64 taps a head),
      float32 and bfloat16, with samples past every border.
   2. Flash-attention kernel vs its plain version: (8, 900, 32), a ragged
      length and head dim 64, float32 and bfloat16;
@@ -28,11 +29,14 @@ Phases (any failure exits non-zero before the result lines):
   6. One BEVFormer-small frame at full width: 12 / 6 / 26 launches.
   7. The int8 product kernel vs its plain version (bit for bit) at named
      shapes of the quantized path: dense layers, a 1x1 and a 3x3 convolution
-     with K = 4608 as matrices, and the odd shapes K = 18, K = 147, N = 3;
+     with K = 4608 as matrices, the odd shapes K = 18, K = 147, N = 3, and
+     the edges of the tile configurations (M = 1, N = 8 at K = 16, K = 32,
+     one row past a tile multiple); each row names its tile configuration;
      `torch._int_mm` is timed beside it as a yardstick where it takes the
      shape.
   8. MSDA from int8 value tables vs its plain version at the SCA and decoder
-     shapes of tiny and base, the kernel alone and with the quantization.
+     shapes of tiny and base and the edge shapes of phase 1, the kernel
+     alone and with the quantization.
   9. int8 flash attention vs its plain version at (8, 900, 32), a ragged
      length and head dim 64.
  10. BEVFormer-tiny under quant="int8", default policy, at full width:
@@ -118,6 +122,7 @@ from bevformer_tensorrt_tpu_torch.tools.kernel_cases import (
     DCN_SHAPES,
     FLASH_SHAPES,
     GEMM_SHAPES,
+    MSDA_EDGE_SHAPES,
     MSDA_INT8_SHAPES,
     MSDA_SHAPES,
     PEAK_FLOPS,
@@ -172,16 +177,27 @@ def max_err(got, want, dtype, what):
     return err
 
 
+MSDA_CASES = ([(name, spec[:5], 32, spec[5], spec[6]) for name, spec in MSDA_SHAPES.items()]
+              + [(name, spec[:5], spec[5], 0, 0) for name, spec in MSDA_EDGE_SHAPES.items()])
+
+
+def msda_geometry(value, table, ref, attn, shapes):
+    bs, _, heads, ch = value.shape
+    L = len(shapes)
+    return msda_ops.msda_launch_geometry(bs, ref.shape[1], heads, ch, L, attn.shape[-1] // L,
+                                         table.element_size(), table.data_ptr())
+
+
 def phase_msda(dev, gen):
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for name, spec in MSDA_SHAPES.items():
-            (value, ref, off, attn), shapes = kc.msda_inputs(spec, dtype, gen, dev)
+        for name, spec, ch, per_tiny, per_base in MSDA_CASES:
+            (value, ref, off, attn), shapes = kc.msda_inputs(spec, dtype, gen, dev, ch=ch)
             got = msda_ops.multi_scale_deformable_attn(value, ref, off, attn, shapes)
             want = msda_ops.multi_scale_deformable_attn_plain(value, ref, off, attn, shapes)
             torch.cuda.synchronize()
             err = max_err(got, want, dtype, f"msda {name} {dtype}")
-            bs, _, nq, P, _, per_tiny, per_base = spec
+            bs, _, nq, P = spec[:4]
             esz = value.element_size()
             nbytes, flops, gathered = kc.msda_work(value, ref, off, attn, shapes)
             b_ms, b_by = bound(nbytes, flops, dtype)
@@ -190,7 +206,8 @@ def phase_msda(dev, gen):
                 lambda: msda_ops.multi_scale_deformable_attn_plain(value, ref, off, attn, shapes),
                 n=3, repeats=3)
             row = dict(shape=name, dtype=dtype_name(dtype), bs=bs, nq=nq, levels=shapes,
-                       P=P, launches_per_frame={"tiny": per_tiny, "base": per_base},
+                       P=P, ch=ch, launches_per_frame={"tiny": per_tiny, "base": per_base},
+                       geometry=msda_geometry(value, value, ref, attn, shapes),
                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                        value_table_mb=value.numel() * esz / 1e6, gathered_mb=gathered * esz / 1e6)
             rows.append(row)
@@ -302,15 +319,18 @@ def phase_int8_gemm(dev, gen, shapes, counts=None, reps=(20, 5)):
         ms = device_ms(lambda: int8_ops.int8_matmul(x, w, xs, ws), *reps)
         plain_ms = device_ms(lambda: int8_ops.int8_matmul_plain(x, w, xs, ws), n=2, repeats=3)
         lib_ms = None
-        if M > 16 and K % 8 == 0 and N % 8 == 0:  # what torch._int_mm takes
+        if kc.int_mm_takes(M, K, N):
             wt = w.t()
             lib_ms = device_ms(lambda: torch._int_mm(x, wt), *reps)
-        row = dict(shape=name, M=M, K=K, N=N, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        config = int8_ops.gemm_config(M, N, K + (-K) % int8_ops.K_ALIGN)
+        row = dict(shape=name, M=M, K=K, N=N, config=config, max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms,
                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                    tops=2 * M * N * K / ms / 1e9,
                    launches_per_frame=(counts or {}).get(name, 0))
         rows.append(row)
-        log(f"int8 gemm {name:22s} M {M:7d} K {K:5d} N {N:5d}  exact  kernel {ms:.4f} ms "
+        log(f"int8 gemm {name:22s} M {M:7d} K {K:5d} N {N:5d} {config:7s} exact  "
+            f"kernel {ms:.4f} ms "
             f"({row['tops']:.1f} TOP/s)  plain {plain_ms:.4f} ms  _int_mm "
             f"{'%.4f ms' % lib_ms if lib_ms is not None else 'n/a'}  "
             f"bound {b_ms * 1e3:.2f} us ({b_by})")
@@ -342,16 +362,19 @@ def phase_msda_int8(dev, gen):
     """MSDA from int8 value tables against its plain version.  `ms` is the
     wrapper (three plain passes quantize the value per (batch, head), then
     the kernel); `kernel_ms` the kernel alone on a table made ahead."""
+    cases = ([(name, MSDA_SHAPES[shape][:5], 32, per_tiny, per_base)
+              for name, (shape, per_tiny, per_base) in MSDA_INT8_SHAPES.items()]
+             + [(name, spec[:5], spec[5], 0, 0) for name, spec in MSDA_EDGE_SHAPES.items()])
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for name, (shape, per_tiny, per_base) in MSDA_INT8_SHAPES.items():
-            (value, ref, off, attn), shapes = kc.msda_inputs(MSDA_SHAPES[shape], dtype, gen, dev)
+        for name, spec, ch, per_tiny, per_base in cases:
+            (value, ref, off, attn), shapes = kc.msda_inputs(spec, dtype, gen, dev, ch=ch)
             op = msda_ops.multi_scale_deformable_attn_int8
             got = op(value, ref, off, attn, shapes)
             want = msda_ops.multi_scale_deformable_attn_int8_plain(value, ref, off, attn, shapes)
             torch.cuda.synchronize()
             err = max_err(got, want, dtype, f"msda int8 {name} {dtype}")
-            bs, _, nq, P = MSDA_SHAPES[shape][:4]
+            bs, _, nq, P = spec[:4]
             whole, alone = kc.msda_int8_work(value, ref, off, attn, shapes)
             b_ms, b_by = bound(*whole, dtype)
             kb_ms, kb_by = bound(*alone, dtype)
@@ -363,7 +386,8 @@ def phase_msda_int8(dev, gen):
             plain_ms = device_ms(lambda: msda_ops.multi_scale_deformable_attn_int8_plain(
                 value, ref, off, attn, shapes), n=3, repeats=3)
             row = dict(shape=name, dtype=dtype_name(dtype), bs=bs, nq=nq, levels=shapes, P=P,
-                       launches_per_frame={"tiny": per_tiny, "base": per_base},
+                       ch=ch, launches_per_frame={"tiny": per_tiny, "base": per_base},
+                       geometry=msda_geometry(value, table[0], ref, attn, shapes),
                        max_abs_err=err, ms=ms, kernel_ms=kernel_ms, float_kernel_ms=float_ms,
                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                        kernel_bound_ms=kb_ms, kernel_bound_by=kb_by,

@@ -182,6 +182,10 @@ def test_kernel_bench_tool_rehearses_on_the_cpu(tmp_path, capsys, monkeypatch):
     split, = [r for r in rows if r["part"] == "split"]
     assert 0 < split["gather_blend_share_of_kernel"] and split["gather_rows_cpu_ms"] > 0
     assert split["gather_blend_library_cpu_ms"] > 0
+    gemm, = [r for r in rows if r["kernel"] == "int8_gemm"]  # per shape: its tile configuration
+    M, K, N = kc.TOY_SHAPES["gemm"]["toy"]
+    assert (gemm["M"], gemm["K"], gemm["N"], gemm["config"]) == (M, K, N, "64x64")
+    assert not {"tops", "bound_fraction"} & set(gemm)  # device rates come from a card only
     only = kernel_bench.main(["--device", "cpu", "--parts", "split"])
     assert only == 0 and len(capsys.readouterr().out.strip().splitlines()) == 2
     with pytest.raises(SystemExit, match="nvcc"):

@@ -60,6 +60,12 @@ def msda_case(shapes, bs, nq, heads, ch, P, ppg, dtype, dev, seed=0):
     (((16, 20), (8, 10), (4, 5), (2, 3)), 8, 4, 32),
     (((9, 11),), 4, 1, 8),
     (((9, 11), (5, 6)), 4, 2, 64),
+    # edges of the launch geometry: 16 channels, a row of 5 lanes, 48 and 64
+    # taps a head (one softmax group across two warps)
+    (((30, 40), (15, 20)), 4, 2, 16),
+    (((9, 11),), 4, 1, 20),
+    (((9, 11), (5, 6), (3, 3)), 16, 4, 32),
+    (((16, 20), (8, 10), (4, 5), (2, 3)), 16, 4, 32),
 ])
 def test_msda_kernel_matches_plain(cuda, dtype, shapes, P, ppg, ch):
     args = msda_case(shapes, 3, 257, 4, ch, P, ppg, dtype, cuda)
@@ -238,6 +244,11 @@ def test_gather_rows_takes_other_row_widths(cuda):
 @pytest.mark.parametrize("M,K,N", [
     (900, 256, 256), (2500, 512, 256), (1, 18, 128), (900, 256, 3), (5000, 147, 64),
     (2250, 4608, 512), (129, 16, 65), (34800, 256, 1024), (77, 576, 27),
+    # edges of the tile configurations: one row at K 4608, N 8 at K 16, K of
+    # one wgmma step, one row past 132 x 128, K 4608 (36 stages) and K 576 on
+    # the large tiles
+    (1, 4608, 64), (129, 16, 8), (300, 32, 136), (16897, 256, 256), (20000, 4608, 256),
+    (40000, 576, 64),
 ])
 def test_int8_gemm_kernel_matches_plain(cuda, M, K, N):
     g = torch.Generator().manual_seed(4)
@@ -268,6 +279,9 @@ def test_int8_gemm_kernel_matches_plain(cuda, M, K, N):
     (((16, 20), (8, 10), (4, 5), (2, 3)), 8, 4, 32, 3, 257),
     (((9, 11), (5, 6)), 4, 2, 64, 2, 100),
     (((9, 11),), 4, 1, 8, 2, 33),
+    (((30, 40), (15, 20)), 4, 2, 16, 2, 300),
+    (((9, 11),), 4, 1, 20, 2, 70),
+    (((16, 20), (8, 10), (4, 5), (2, 3)), 16, 4, 32, 2, 150),
 ])
 def test_msda_int8_kernel_matches_plain(cuda, dtype, shapes, P, ppg, ch, bs, nq):
     value, ref, off, attn = msda_case(shapes, bs, nq, 4, ch, P, ppg, dtype, cuda)
