@@ -46,66 +46,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kBK = 128;  // bytes of K per stage: one 128-byte swizzle row
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor of a K-major tile in the 128-byte swizzle
-// that TMA wrote: rows of 128 bytes, 8-row atoms 1024 bytes apart.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
-  d |= (uint64_t)1 << 16;             // leading byte offset (unused with this swizzle)
-  d |= (uint64_t)(1024 >> 4) << 32;   // stride byte offset: one 8-row atom
-  d |= (uint64_t)1 << 62;             // 128-byte swizzle
-  return d;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::smem_u32;
+using hopper::sw128_desc;
+using hopper::tma_load;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_wait;
 
 #define ACC8(i)                                                                        \
   "+r"(d[(i) + 0]), "+r"(d[(i) + 1]), "+r"(d[(i) + 2]), "+r"(d[(i) + 3]),             \
@@ -277,39 +233,10 @@ int8_gemm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
 // [rows, K] int8, K contiguous, boxes of kBK bytes x box_rows rows, 128-byte swizzle
 bool encode_map(CUtensorMap* map, const void* ptr, int rows, int K, int box_rows) {
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K};
-  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
+  return hopper::encode_sw128_map(map, ptr, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, rows, K, K,
+                                  box_rows);
 }
 
 template <typename T, int NC, int BN, int STAGES>

@@ -34,7 +34,12 @@ class DeformConv2d(nn.Module):
     emits dg*27 channels in mmcv's layout: the first 2*ntap are the offsets,
     per tap interleaved (2t = y, 2t+1 = x), the last ntap the mask logits.
     Under "int8" the op samples from the int8 table of `x` (`int8_table`,
-    resolved under the policy at the site `<module>/dcn_tables`)."""
+    resolved under the policy at the site `<module>/dcn_tables`).  The op's
+    weight matrix (`dcn_weight_matrix`) is kept per activation dtype and
+    made again when the weight is replaced or changed in place through
+    autograd's view of it (its version moves), when a state_dict is loaded
+    and when the module is moved or cast.  An edit through `weight.data`
+    leaves the version as it was: call `invalidate()` after one."""
 
     def __init__(self, in_channels: int, features: int, stride: int = 1,
                  deform_groups: int = 1, quant=False):
@@ -46,21 +51,51 @@ class DeformConv2d(nn.Module):
         self.int8_table = quant == "int8"
         self.conv_offset = QConv(in_channels, deform_groups * 27, 3, stride, 1, quant=quant)
         self.weight = nn.Parameter(torch.empty(features, in_channels, 3, 3))
+        self._wmats: dict = {}  # dtype -> (the weight's identity, its matrix)
 
     def resolve_quant(self, path, exclude) -> None:
         self.path = tuple(path)
         self.int8_table = effective_quant(
             self.quant, self.path + ("dcn_tables",), exclude) == "int8"
 
+    def _load_from_state_dict(self, state_dict, prefix, *args):
+        self._wmats = {}
+        super()._load_from_state_dict(state_dict, prefix, *args)
+
+    def _apply(self, fn, *args, **kwargs):
+        self._wmats = {}
+        return super()._apply(fn, *args, **kwargs)
+
+    def invalidate(self):
+        """Drops the kept weight matrices (after an edit of the weight that
+        its version does not see, such as one through `weight.data`)."""
+        self._wmats = {}
+
+    def weight_matrix(self, dtype):
+        """`dcn_weight_matrix(self.weight, dtype)`, made once per dtype and
+        weight state."""
+        w = self.weight
+        key = (w.data_ptr(), w.device, w._version)
+        kept = self._wmats.get(dtype)
+        if kept is None or kept[0] != key:
+            with torch.no_grad():
+                kept = (key, dcn_ops.dcn_weight_matrix(w, dtype))
+            self._wmats[dtype] = kept
+        return kept[1]
+
     def forward(self, x):
         ntap = self.deform_groups * 9
         off_mask = self.conv_offset(x)
         offset = off_mask[:, : 2 * ntap].contiguous()
         mask = torch.sigmoid(off_mask[:, 2 * ntap:]).contiguous()
+        # the fused kernel's operand: bfloat16 maps and int8 tables (float32
+        # maps take the im2col route, which multiplies by the weight itself)
+        fused = x.is_cuda and (x.dtype != torch.float32 or self.int8_table)
+        wmat = self.weight_matrix(x.dtype) if fused else None
         return dcn_ops.modulated_deform_conv2d(
             x.contiguous(), offset, mask, self.weight, None, stride=self.stride, padding=1,
             dilation=1, groups=1, deform_groups=self.deform_groups, layout="NCHW",
-            quant="int8" if self.int8_table else False)
+            quant="int8" if self.int8_table else False, wmat=wmat)
 
 
 class Bottleneck(nn.Module):

@@ -7,11 +7,14 @@ from .attention import (
     qkv_plain,
 )
 from .dcn import (
+    dcn_gather_table,
     deform_im2col,
     deform_im2col_int8,
     deform_im2col_int8_plain,
     deform_im2col_plain,
     modulated_deform_conv2d,
+    modulated_deform_conv2d_int8,
+    modulated_deform_conv2d_int8_plain,
     modulated_deform_conv2d_plain,
     quantize_dcn_table,
 )
@@ -27,11 +30,15 @@ from .msda import (
 from .rotate import rotate
 
 # every function that carries a launch count, in the order the smoke run
-# reports them: the model's seven kernels, then the two probes of the kernel
-# bench tool
+# reports them: the model's kernels (the DCN op's fused kernel from the float
+# map and from the int8 table, then the channels-last gather table it reads,
+# made by `dcn_gather_table`), the two probes of the kernel bench tool, then
+# the two deformable im2col kernels that the DCN op used before the fused
+# kernel, kept as its yardstick off every path
 KERNEL_WRAPPERS = (multi_scale_deformable_attn, flash_attention, modulated_deform_conv2d,
                    int8_matmul.int8_matmul, multi_scale_deformable_attn_int8,
-                   flash_attention_int8, deform_im2col_int8, gather_rows, gather_blend)
+                   flash_attention_int8, modulated_deform_conv2d_int8, dcn_gather_table,
+                   gather_rows, gather_blend, deform_im2col, deform_im2col_int8)
 
 
 def reset_launch_counts() -> None:
@@ -46,6 +53,7 @@ __all__ = [
     "int8_matmul",
     "multi_head_attention",
     "qkv_plain",
+    "dcn_gather_table",
     "deform_im2col",
     "deform_im2col_int8",
     "deform_im2col_int8_plain",
@@ -56,6 +64,8 @@ __all__ = [
     "gather_rows_plain",
     "quantize_dcn_table",
     "modulated_deform_conv2d",
+    "modulated_deform_conv2d_int8",
+    "modulated_deform_conv2d_int8_plain",
     "modulated_deform_conv2d_plain",
     "msda_sampling_locations",
     "multi_scale_deformable_attn",

@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` exports a plain C interface.  It is compiled with
 nvcc for Hopper (`sm_90a`) into its own shared library under
 `csrc/build/` at first use, and loaded with ctypes.  A library's file name
-carries a hash of its source and flags, so an edited source is rebuilt.
+carries a hash of its source, the shared headers (`csrc/*.cuh`) and the
+flags, so an edited source or header is rebuilt.
 Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -18,7 +20,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = CSRC / "build"
-KERNELS = ("msda", "flash_attn", "dcn", "int8_gemm", "flash_attn_int8", "gather_probe")
+KERNELS = ("msda", "flash_attn", "dcn", "int8_gemm", "flash_attn_int8", "gather_probe",
+           "dcn_fused")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -39,8 +42,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = (CSRC / f"{name}.cu").read_bytes()
+    # a source that includes another source (dcn_fused_split.cu) hashes it too
+    text += b"".join((CSRC / inc.decode()).read_bytes()
+                     for inc in re.findall(rb'#include "(\w+\.cu)"', text))
+    text += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD / f"lib{name}-{digest[:16]}.so"
 
 

@@ -94,39 +94,58 @@ MSDA_MIN_BLOCKS = 4 * 132  # blocks a launch is spread over where it has the que
 SMEM_LIMIT = 232448        # dynamic shared memory one block may opt into on Hopper
 
 
+MSDA_MAX_CH = 128          # channels a block blends; wider rows are split on a grid axis
+
+
 def msda_launch_geometry(bs: int, nq: int, heads: int, ch: int, L: int, P: int,
                          value_esz: int, value_ptr: int = 0) -> dict:
     """How `csrc/msda.cu` is launched for a problem: `lpp`, the taps of a
-    (query, head) padded to a power of two (one softmax group of phase 1);
-    `qt` queries a block, all their heads (MSDA_TAPS_PER_BLOCK taps, fewer
-    where that would leave fewer than MSDA_MIN_BLOCKS blocks); `vw`, the
-    bytes of a value row each lane loads (16 where the row width and the
-    table's address allow, else the largest power of two that both do);
-    `seg`, the row groups that share one output in the blend: the fewest
-    that still give every warp of the block an output, so that one warp
-    instruction reads the rows of neighbouring heads of one query (adjacent
-    in the value's layout where the heads sample nearby keys, as the
-    model's do) and few shuffles combine the shares; `smem`, 8 bytes for
-    each of the four corners of every tap of the block, and 16 after each
-    output's (a bank shift between outputs).  Raises where the kernel does
-    not take the problem."""
+    (query, head) that one phase-1 pass takes, padded to a power of two (at
+    most MSDA_THREADS), and `passes` = ceil(L*P / lpp) (more than one only
+    past MSDA_THREADS taps, or where the block's shared memory forces it;
+    then the softmax's max and sum come from all the taps first and each
+    pass adds into the same output); `qt` queries a block, all their heads
+    (MSDA_TAPS_PER_BLOCK taps, fewer where that would leave fewer than
+    MSDA_MIN_BLOCKS blocks; 1 before `lpp` is lowered); `cch`, the channels
+    a block blends (`ch`, or MSDA_MAX_CH for wider rows, whose chunks,
+    `chunks` of them, are a grid axis); `vw`, the bytes of a value row each
+    lane loads (16 where the chunk's width and the table's address allow,
+    else the largest power of two that they do); `seg`, the row groups that
+    share one output in the blend: the fewest that still give every warp of
+    the block an output, so that one warp instruction reads the rows of
+    neighbouring heads of one query (adjacent in the value's layout where
+    the heads sample nearby keys, as the model's do) and few shuffles
+    combine the shares; `smem`, 8 bytes for each of the four corners of
+    every tap of the block, and 16 after each output's (a bank shift
+    between outputs), and with several passes a float32 sum of each output's
+    chunk and its softmax stats.  Raises where the problem is empty."""
     LP = L * P
-    lpp = 1 << (LP - 1).bit_length()
-    if lpp > MSDA_THREADS:
-        raise ValueError(f"msda kernel: {LP} taps (levels x points) per head; at most "
-                         f"{MSDA_THREADS}")
-    if not 1 <= ch <= 128:
-        raise ValueError(f"msda kernel: ch {ch} is not in [1, 128]")
+    if LP < 1 or ch < 1 or heads < 1:
+        raise ValueError(f"msda kernel: {L} levels x {P} points, {heads} heads, ch {ch}: empty")
+    chunks = -(-ch // MSDA_MAX_CH)
+    cch = ch if chunks == 1 else MSDA_MAX_CH
+    lpp = min(1 << (LP - 1).bit_length(), MSDA_THREADS)
     qt = max(1, min(nq, MSDA_TAPS_PER_BLOCK // (heads * lpp), -(-bs * nq // MSDA_MIN_BLOCKS)))
-    smem = 8 * qt * heads * (4 * lpp + 2)  # two int2 of padding after each output's corners
+
+    def smem_of(qt, lpp):
+        # two int2 of padding after each output's corners
+        multi = qt * heads * (8 + 4 * cch) if -(-LP // lpp) > 1 else 0
+        return 8 * qt * heads * (4 * lpp + 2) + multi
+
+    while smem_of(qt, lpp) > SMEM_LIMIT and qt > 1:
+        qt = 1
+    while smem_of(qt, lpp) > SMEM_LIMIT and lpp > 1:
+        lpp //= 2
+    smem = smem_of(qt, lpp)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"msda kernel: {heads} heads x {lpp} taps need {smem} bytes of "
-                         f"shared memory, more than {SMEM_LIMIT}")
-    row = ch * value_esz
+        raise ValueError(f"msda kernel: {heads} heads need {smem} bytes of shared memory, more "
+                         f"than {SMEM_LIMIT}")
+    # every chunk's row (the last may be narrower) and address takes vw
+    tail = ch - (chunks - 1) * cch
     vw = 16
-    while row % vw or value_ptr % vw:
+    while (cch * value_esz) % vw or (tail * value_esz) % vw or value_ptr % vw:
         vw //= 2
-    lanes = row // vw
+    lanes = cch * value_esz // vw
     rpw = 1  # rows one warp instruction reads
     while 2 * rpw * lanes <= 32:
         rpw *= 2
@@ -134,7 +153,8 @@ def msda_launch_geometry(bs: int, nq: int, heads: int, ch: int, L: int, P: int,
     while seg < rpw and rpw // seg * (MSDA_THREADS // 32) > qt * heads:
         seg *= 2
     return dict(qt=qt, threads=MSDA_THREADS, lpp=lpp, vw=vw, seg=seg, smem=smem,
-                lanes_per_row=lanes, rows_per_warp=rpw, blocks=bs * -(-nq // qt))
+                lanes_per_row=lanes, rows_per_warp=rpw, blocks=bs * -(-nq // qt) * chunks,
+                passes=-(-LP // lpp), cch=cch, chunks=chunks)
 
 
 def _level_table(spatial_shapes: Shapes, device) -> torch.Tensor:
@@ -175,10 +195,10 @@ def multi_scale_deformable_attn_int8_plain(value, reference_points, sampling_off
 def _msda_lib():
     lib = _cuda.load("msda")
     if lib.msda_forward.argtypes is None:
-        lib.msda_forward.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 14
+        lib.msda_forward.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 16
                                      + [ctypes.c_void_p])
         lib.msda_forward.restype = ctypes.c_int
-        lib.msda_int8_forward.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 14
+        lib.msda_int8_forward.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 16
                                           + [ctypes.c_void_p])
         lib.msda_int8_forward.restype = ctypes.c_int
     return lib
@@ -238,7 +258,8 @@ def _msda_cuda(value, reference_points, sampling_offsets, attention_weights,
     tail = (reference_points.data_ptr(), sampling_offsets.data_ptr(),
             attention_weights.data_ptr(), levels.data_ptr(), out.data_ptr(),
             bs, nk, nq, heads, ch, L, P, ppg, _DTYPES[value.dtype],
-            geo["qt"], geo["threads"], geo["lpp"], geo["vw"], geo["seg"], stream)
+            geo["qt"], geo["threads"], geo["lpp"], geo["vw"], geo["seg"], geo["passes"],
+            geo["cch"], stream)
     if int8_table is not None:
         err = lib.msda_int8_forward(q.data_ptr(), scale.data_ptr(), *tail)
         _cuda.check(lib, err, "msda int8 kernel launch")

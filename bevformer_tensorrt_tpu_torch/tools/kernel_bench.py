@@ -3,7 +3,7 @@ production kernel at the models' shapes beside its bound, and what share of
 the MSDA kernel's time is the gather.
 
     python -m bevformer_tensorrt_tpu_torch.tools.kernel_bench [--span N ...]
-        [--shapes sca_base sca_tiny] [--parts probes production split]
+        [--shapes sca_base sca_tiny] [--parts probes production split dcn_split]
         [--build-report] [--out FILE] [--device cuda]
 
 It takes the place of the JAX package's TPU design-space probes
@@ -21,15 +21,24 @@ counterpart on a GPU; what is left is
               no locality).  `torch.gather` is timed beside `gather_rows`,
               and `F.embedding_bag` with per-sample weights beside
               `gather_blend` (float32 and bfloat16 rows; it takes no int8).
-  production  the seven kernels of the models at the shapes the models give
-              them (`tools/kernel_cases.py`), each beside its bound; the
-              int8 product's rows name the tile configuration and give
-              TOP/s, the fraction of the bound reached and `torch._int_mm`'s
-              time where it takes the shape.
+  production  the kernels of the models at the shapes the models give them
+              (`tools/kernel_cases.py`), each beside its bound; the int8
+              product's rows name the tile configuration and give TOP/s, the
+              fraction of the bound reached and `torch._int_mm`'s time where
+              it takes the shape; the DCN op's rows (from the float map and
+              from the int8 table) give TFLOP/s, the parent's route (im2col
+              kernel, then the product) and cuDNN's `F.conv2d` of the shape.
   split       MSDA at its base and tiny cross-attention shapes: the bare
               gather of the rows the kernel reads, the gather with the blend,
               and the whole kernel, at the same indices and weights,
               with `F.embedding_bag` on them as the library's time.
+  dcn_split   (asked for by name) the fused DCN kernel at base's and small's shapes, for each
+              operand kind (bfloat16 map, int8 table with float32
+              activations, float32 map) and each tile configuration: the
+              kernel alone (gather table made ahead), then without its corner
+              loads (the sampled tiles blend zeros) and without its product,
+              with the blocks an SM holds; the table, the whole op, the
+              parent's route and `F.conv2d` beside them.
   --build-report  compiles each source again on its own and prints nvcc's
               time and ptxas' registers and spills.
 
@@ -60,7 +69,11 @@ from ..ops import msda as msda_ops
 from ..runtime.engine import resolve_device
 from . import kernel_cases as kc
 
-PARTS = ("probes", "production", "split")
+PARTS = ("probes", "production", "split", "dcn_split")
+DEFAULT_PARTS = PARTS[:3]
+DCN_KINDS = {  # operand kind: (activation dtype, int8 table)
+    "bf16": (torch.bfloat16, False), "int8": (torch.float32, True),
+    "f32": (torch.float32, False)}
 
 
 class Bench:
@@ -161,20 +174,52 @@ def run_production(bench, shapes):
                 (*alone, torch.int8), dtype,
                 **({"note": "kernel alone, operands quantized ahead"} if bench.cuda else {}))
         for name, spec in shapes["dcn"].items():
-            x, off, mask, _, geo = kc.dcn_inputs(spec, dtype, gen, dev)
-            esz = x.element_size()
+            x, off, mask, weight, geo = kc.dcn_inputs(spec, dtype, gen, dev)
+            esz, groups = x.element_size(), spec[9]
+            Ho, Wo = off.shape[2:]
             bench.emit("production", "dcn_im2col", name, bench.ms(
                 lambda: (dcn_ops.deform_im2col(x, off, mask, (3, 3), **geo) if bench.cuda
                          else dcn_ops.deform_im2col_plain(x, off, mask, (3, 3), **geo))),
                 (*kc.dcn_work(spec, esz)[:2], dtype), dtype)
+            # the whole op (float32: the im2col route; bfloat16: the gather
+            # table and the fused kernel) beside the parent's route and cuDNN
+            more = {}
+            if bench.cuda:
+                wd = weight.to(dtype)
+                more = dict(route_ms=bench.ms(lambda: dcn_ops.col_product(
+                    dcn_ops.deform_im2col(x, off, mask, (3, 3), **geo), weight, None, Ho, Wo,
+                    "NCHW", groups)), conv2d_ms=bench.ms(
+                    lambda: torch.nn.functional.conv2d(x, wd, None, spec[5], 1, 1, groups)))
+            # the op as the model calls it, its weight matrix kept
+            wmat = dcn_ops.dcn_weight_matrix(weight, dtype) if dtype == torch.bfloat16 else None
+            t = bench.ms(lambda: ops.modulated_deform_conv2d(x, off, mask, weight, None,
+                                                             groups=groups, wmat=wmat, **geo))
+            flops = kc.dcn_op_work(spec, esz)[1]
+            bench.emit("production", "dcn_op", name, t, (*kc.dcn_op_work(spec, esz), dtype),
+                       dtype, route="fused" if dtype == torch.bfloat16 else "im2col",
+                       **({"tflops": flops / t / 1e9} if bench.cuda else {}), **more)
             Cin = spec[1]
-            if not dcn_ops.int8_table_eligible(Cin, 1, spec[6]):
+            if not dcn_ops.int8_table_eligible(Cin, groups, spec[6]):
                 continue
-            q, scale = dcn_ops.quantize_dcn_table(x, dcn_ops.dcn_ch_group(Cin))
+            chg = dcn_ops.dcn_ch_group(Cin)
+            q, scale = dcn_ops.quantize_dcn_table(x, chg)
             bench.emit("production", "dcn_im2col_int8", name, bench.ms(
                 lambda: ops.deform_im2col_int8(q, scale, off, mask, (3, 3), **geo)),
                 (*kc.dcn_work(spec, esz, 1, scale.numel() * 4)[:2], dtype), dtype,
                 note="kernel alone, table quantized ahead")
+            more = {}
+            if bench.cuda:
+                more = dict(route_ms=bench.ms(lambda: dcn_ops.col_product(
+                    dcn_ops.deform_im2col_int8(*dcn_ops.quantize_dcn_table(x, chg), off, mask,
+                                               (3, 3), **geo), weight, None, Ho, Wo, "NCHW")),
+                            table_ms=bench.ms(lambda: dcn_ops.dcn_gather_table(x, "NCHW", chg)))
+            wmat = dcn_ops.dcn_weight_matrix(weight, dtype)
+            t = bench.ms(lambda: ops.modulated_deform_conv2d(x, off, mask, weight, None,
+                                                             quant="int8", wmat=wmat, **geo))
+            bench.emit("production", "dcn_op_int8", name, t,
+                       (*kc.dcn_op_work(spec, esz, scale.numel() * 4), dtype), dtype,
+                       route="fused", **({"tflops": flops / t / 1e9} if bench.cuda else {}),
+                       **more)
     for name, (M, K, N) in shapes["gemm"].items():
         x, w, xs, ws = kc.gemm_case(M, K, N, gen, dev)
         t = bench.ms(lambda: int8_ops.int8_matmul(x, w, xs, ws))
@@ -223,6 +268,68 @@ def run_split(bench, shapes):
             torch.cuda.empty_cache()
 
 
+def run_dcn_split(bench, shapes, kinds):
+    """The fused DCN kernel in parts, per shape, operand kind and tile
+    configuration: whole (`ms`), without its corner loads (`no_loads_ms`),
+    without its product (`no_product_ms`), from a gather table made ahead;
+    `op_ms` is the op as the models call it (table and kernel; for a float32
+    map the op's own route), `route_ms` the parent's (im2col kernel, then the
+    product)."""
+    dev, gen = bench.dev, bench.gen
+    for name, spec in shapes.items():
+        N, Cin, H, W, Cout, stride, dg = spec[:7]
+        groups = spec[9]
+        Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+        for kind in kinds:
+            dtype, int8 = DCN_KINDS[kind]
+            x, off, mask, weight, geo = kc.dcn_inputs(spec, dtype, gen, dev)
+            esz = x.element_size()
+            quant = "int8" if int8 else False
+            chg = dcn_ops.dcn_ch_group(Cin) if int8 else None
+            # the op as the model calls it (a float32 map: the im2col route), the
+            # fused kernel's weight matrix kept
+            wmat = dcn_ops.dcn_weight_matrix(weight, dtype) if int8 or dtype != torch.float32 \
+                else None
+            op_ms = bench.ms(lambda: ops.modulated_deform_conv2d(
+                x, off, mask, weight, None, groups=groups, quant=quant, wmat=wmat, **geo))
+            if not bench.cuda:  # the rehearsal: the op's plain version alone
+                bench.emit("dcn_split", "dcn_op", name, op_ms, None, dtype, kind=kind)
+                continue
+            scale_bytes = Cin // (chg or Cin) * N * 4 if int8 else 0
+            work = (*kc.dcn_op_work(spec, esz, scale_bytes), dtype)
+            _, launch = dcn_ops.fused_launcher(x, off, mask, weight, None, stride, 1, 1, groups,
+                                               dg, "NCHW", int8, dcn_ops.dcn_weight_matrix(
+                                                   weight, dtype))
+            table_ms = bench.ms(lambda: dcn_ops.dcn_gather_table(x, "NCHW", chg))
+            if int8:
+                route_ms = bench.ms(lambda: dcn_ops.col_product(dcn_ops.deform_im2col_int8(
+                    *dcn_ops.quantize_dcn_table(x, chg), off, mask, (3, 3), **geo), weight,
+                    None, Ho, Wo, "NCHW"))
+            else:
+                route_ms = bench.ms(lambda: dcn_ops.col_product(
+                    dcn_ops.deform_im2col(x, off, mask, (3, 3), **geo), weight, None, Ho, Wo,
+                    "NCHW", groups))
+            wd = weight.to(dtype)
+            conv2d_ms = bench.ms(lambda: torch.nn.functional.conv2d(x, wd, None, stride, 1, 1,
+                                                                    groups))
+            flops = work[1]
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            picked = dcn_ops.dcn_config(Cout // groups, dtype, groups, N * Ho * Wo, sms)
+            for config, (cdtype, *_rest) in dcn_ops.DCN_CONFIGS.items():
+                if cdtype != dtype:
+                    continue
+                t = bench.ms(lambda: launch(config))
+                bench.emit("dcn_split", "dcn_fused", name, t, work, dtype, kind=kind,
+                           config=config, picked=config == picked, tflops=flops / t / 1e9,
+                           no_loads_ms=bench.ms(lambda: launch(config, 1)),
+                           no_product_ms=bench.ms(lambda: launch(config, 2)),
+                           blocks_per_sm=dcn_ops.dcn_blocks_per_sm(config, int8),
+                           table_ms=table_ms, op_ms=op_ms, route_ms=route_ms,
+                           conv2d_ms=conv2d_ms)
+            del x, off, mask, weight, wd, launch, wmat
+            torch.cuda.empty_cache()
+
+
 def build_report():
     """Each source compiled again on its own: seconds of nvcc, and ptxas'
     registers and spills per kernel."""
@@ -244,7 +351,12 @@ def main(argv=None):
                     help="panel spans of the sweep; default: each probe shape's own")
     ap.add_argument("--shapes", nargs="*", default=None, choices=tuple(kc.PROBE_SHAPES),
                     help="probe shapes; default: all")
-    ap.add_argument("--parts", nargs="*", default=PARTS, choices=PARTS)
+    ap.add_argument("--parts", nargs="*", default=DEFAULT_PARTS, choices=PARTS,
+                    help="default: probes production split")
+    ap.add_argument("--dcn-shapes", nargs="*", default=None, choices=tuple(kc.DCN_SHAPES),
+                    help="shapes of the dcn_split part; default: base's and small's")
+    ap.add_argument("--dcn-kinds", nargs="*", default=tuple(DCN_KINDS), choices=tuple(DCN_KINDS),
+                    help="operand kinds of the dcn_split part")
     ap.add_argument("--build-report", action="store_true")
     ap.add_argument("--out", help="also write every row as JSON to this file")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
@@ -261,6 +373,7 @@ def main(argv=None):
         production = dict(msda=kc.MSDA_SHAPES, flash=kc.FLASH_SHAPES, dcn=kc.DCN_INT8_SHAPES,
                           gemm=kc.GEMM_SHAPES)
         split = {n: kc.MSDA_SHAPES[n] for n in ("base4", "sca")}
+        dcn_split = {n: kc.DCN_SHAPES[n] for n in (args.dcn_shapes or kc.DCN_MODEL_SHAPES)}
     else:
         if args.build_report:
             raise SystemExit("kernel_bench: --build-report needs nvcc and a CUDA device")
@@ -268,6 +381,7 @@ def main(argv=None):
         probe_shapes = kc.TOY_SHAPES["probe"]
         production = {k: kc.TOY_SHAPES[k] for k in ("msda", "flash", "dcn", "gemm")}
         split = kc.TOY_SHAPES["msda"]
+        dcn_split = kc.TOY_SHAPES["dcn"]
     print(card, flush=True)
     bench = Bench(dev, rows)
     report = build_report() if args.build_report else None
@@ -278,6 +392,8 @@ def main(argv=None):
             run_production(bench, production)
         if "split" in args.parts:
             run_split(bench, split)
+        if "dcn_split" in args.parts:
+            run_dcn_split(bench, dcn_split, args.dcn_kinds)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(dict(card=card, rows=rows, build=report), fh, indent=1)

@@ -30,11 +30,16 @@ MSDA_SHAPES = {
     "decoder_base": (1, ((200, 200),), 900, 4, 1, 0, 6),
 }
 MSDA_EDGE_SHAPES = {
-    # no model launches these: the kernel's other row widths and taps past a
-    # warp; name: (bs, spatial_shapes, nq, P, ppg, ch), 8 heads
-    "ch16": (2, ((30, 40), (15, 20)), 1000, 4, 2, 16),
-    "ch64": (2, ((50, 50),), 2500, 4, 1, 64),
-    "lp64": (2, ((40, 50), (20, 25), (10, 13), (5, 7)), 700, 16, 4, 32),
+    # no model launches these: the kernel's other row widths, taps past a
+    # warp, taps past a block (two phase-1 passes), rows past 128 channels
+    # (two channel chunks) and heads x taps past a block's shared memory
+    # (four passes of 64 taps); name: (bs, spatial_shapes, nq, P, ppg, ch, heads)
+    "ch16": (2, ((30, 40), (15, 20)), 1000, 4, 2, 16, 8),
+    "ch64": (2, ((50, 50),), 2500, 4, 1, 64, 8),
+    "lp64": (2, ((40, 50), (20, 25), (10, 13), (5, 7)), 700, 16, 4, 32, 8),
+    "lp320": (2, ((40, 50), (20, 25), (10, 13), (5, 7)), 400, 80, 4, 32, 8),
+    "ch256": (2, ((30, 40), (15, 20)), 1000, 4, 2, 256, 8),
+    "heads64": (1, ((20, 25), (10, 13), (5, 7), (3, 4)), 200, 64, 4, 32, 64),
 }
 FLASH_SHAPES = {
     # name: (B, Lq, Lk, d, launches per tiny frame, per base frame)
@@ -43,18 +48,21 @@ FLASH_SHAPES = {
     "d64": (8, 900, 900, 64, 0, 0),
 }
 DCN_SHAPES = {
-    # name: (N, Cin, H, W, Cout, stride, deform groups, launches per base frame, per small frame)
-    "base_s3": (6, 256, 58, 100, 256, 1, 1, 23, 0),
-    "base_s4": (6, 512, 29, 50, 512, 1, 1, 3, 0),
-    "small_s3": (6, 256, 46, 80, 256, 1, 1, 0, 23),
-    "small_s4": (6, 512, 23, 40, 512, 1, 1, 0, 3),
-    "ragged": (2, 48, 37, 53, 40, 2, 2, 0, 0),
+    # name: (N, Cin, H, W, Cout, stride, deform groups, launches per base frame,
+    #        per small frame, groups)
+    "base_s3": (6, 256, 58, 100, 256, 1, 1, 23, 0, 1),
+    "base_s4": (6, 512, 29, 50, 512, 1, 1, 3, 0, 1),
+    "small_s3": (6, 256, 46, 80, 256, 1, 1, 0, 23, 1),
+    "small_s4": (6, 512, 23, 40, 512, 1, 1, 0, 3, 1),
+    "ragged": (2, 48, 37, 53, 40, 2, 2, 0, 0, 1),
+    "groups2": (2, 64, 23, 31, 48, 1, 2, 0, 0, 2),  # two conv groups of 32 -> 24 channels
 }
+DCN_MODEL_SHAPES = ("base_s3", "base_s4", "small_s3", "small_s4")  # the models' own
 DCN_INT8_SHAPES = {
-    # the int8 table is taken only with one deform group and Cin % 32 == 0;
-    # same columns as DCN_SHAPES
-    **{name: spec for name, spec in DCN_SHAPES.items() if name != "ragged"},
-    "ragged": (2, 96, 37, 53, 40, 2, 1, 0, 0),  # stride 2, ragged size, channel groups of 32
+    # the int8 table is taken only with one deform group, one group and
+    # Cin % 32 == 0; same columns as DCN_SHAPES
+    **{name: spec for name, spec in DCN_SHAPES.items() if name not in ("ragged", "groups2")},
+    "ragged": (2, 96, 37, 53, 40, 2, 1, 0, 0, 1),  # stride 2, ragged size, channel groups of 32
 }
 MSDA_INT8_SHAPES = {
     # int8 tables: SCA and decoder (TSA's stay floating point by the default policy);
@@ -91,7 +99,7 @@ PROBE_SHAPES = {
 TOY_SHAPES = {
     "msda": {"toy": (2, ((6, 7), (3, 4)), 24, 4, 2, 0, 0)},
     "flash": {"toy": (2, 20, 24, 32, 0, 0)},
-    "dcn": {"toy": (1, 32, 6, 7, 8, 1, 1, 0, 0)},
+    "dcn": {"toy": (1, 32, 6, 7, 8, 1, 1, 0, 0, 1)},
     "gemm": {"toy": (24, 32, 8)},
     "probe": {"toy": (2, 256, 16, 8, 16, (1, 2))},
 }
@@ -240,16 +248,19 @@ def flash_int8_work(q, k, v):
 # ---- deformable im2col --------------------------------------------------------
 
 def dcn_inputs(spec, dtype, gen, dev, layout="NCHW"):
-    """x, offset (one in fifty well past the borders), mask, weight and the
-    op's geometry keywords for a row of DCN_SHAPES, 3x3, padding 1."""
+    """x, offset (one in fifty well past the borders), mask, weight
+    [Cout, Cin / groups, 3, 3] and the im2col's geometry keywords for a row
+    of DCN_SHAPES, 3x3, padding 1 (the op also takes `groups`, spec[9])."""
     N, Cin, H, W, Cout, stride, dg = spec[:7]
+    groups = spec[9]
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     x = torch.randn(N, Cin, H, W, generator=gen)
     off = torch.randn(N, 2 * dg * 9, Ho, Wo, generator=gen) * 2
     far = torch.rand(off.shape, generator=gen) < 0.02
     off = torch.where(far, torch.sign(off) * 300.0, off)
     mask = torch.rand(N, dg * 9, Ho, Wo, generator=gen)
-    weight = (torch.randn(Cout, Cin, 3, 3, generator=gen) / (Cin * 9) ** 0.5).to(dev)
+    weight = (torch.randn(Cout, Cin // groups, 3, 3, generator=gen)
+              / (Cin // groups * 9) ** 0.5).to(dev)
     if layout == "NHWC":
         x, off, mask = (t.permute(0, 2, 3, 1).contiguous() for t in (x, off, mask))
     x, off, mask = (t.to(dev, dtype) for t in (x, off, mask))
@@ -268,6 +279,20 @@ def dcn_work(spec, esz, x_bytes_per_value=None, scale_bytes=0, taps=9):
     x_bytes = N * Cin * H * W * (esz if x_bytes_per_value is None else x_bytes_per_value)
     nbytes = x_bytes + scale_bytes + N * 3 * dg * taps * S * esz + col_bytes
     return nbytes, 8 * N * taps * Cin * S, col_bytes
+
+
+def dcn_op_work(spec, esz, scale_bytes=0, taps=9):
+    """(bytes, flops) of the whole op at a row of DCN_SHAPES with `esz`-byte
+    activations, as the fused kernel does it: x (or, for the int8 table, the
+    float map the codes are made from, plus `scale_bytes`), offsets, mask and
+    the weight matrix read once, the output written once; 2 flops per
+    multiply-add of the product (the sampling's are left out)."""
+    N, Cin, H, W, Cout, stride, dg = spec[:7]
+    groups = spec[9]
+    S = ((H - 1) // stride + 1) * ((W - 1) // stride + 1)
+    nbytes = (N * Cin * H * W * esz + scale_bytes + N * 3 * dg * taps * S * esz
+              + Cout * taps * (Cin // groups) * esz + N * Cout * S * esz)
+    return nbytes, 2 * N * Cout * taps * (Cin // groups) * S
 
 
 # ---- int8 product -------------------------------------------------------------

@@ -11,8 +11,8 @@ again (what the atomic adds of the camera scatter change from run to run),
 with exactly one op on its CUDA kernel, and with all on their kernels.
 With `--quant int8` the model is calibrated first (`max`, over the same
 frames) and the int8 kernels are on the path: the product, the MSDA value
-tables, flash attention and, on a DCN backbone, the int8 table of the
-im2col (unless `--exclude` names `dcn_tables`).
+tables, flash attention and, on a DCN backbone, the DCN op's int8 table
+(unless `--exclude` names `dcn_tables`).
 Prints, for each run, the worst relative error against the reference over
 the frames: "max" = max |a - b| / max |b| and "rms" = ||a - b|| / ||b||, for
 the BEV embedding and for the class scores and box coordinates of each
@@ -36,18 +36,34 @@ from ..ops import msda as msda_ops
 from ..runtime.engine import BEVFormerEngine
 from ..runtime.synthetic import synthetic_frames
 
-# op: (module, the function that launches its kernel, its plain version).  The
-# DCN op launches one of its two im2col kernels and multiplies the columns with
-# the weight either way, so the swap is at the im2col.
+
+
+def dcn_float_plain(x, offset, mask, weight, bias=None, stride=1, padding=1, dilation=1,
+                    groups=1, deform_groups=1, layout="NCHW", quant=False, wmat=None):
+    """What stands in for `modulated_deform_conv2d` when "dcn" runs plain:
+    the plain op on the floating-point map, while an eligible int8 table
+    still goes through `modulated_deform_conv2d_int8`, on its kernel or
+    plain as "dcn_int8" is swapped."""
+    Cin = x.shape[3 if layout == "NHWC" else 1]
+    if quant == "int8" and dcn_ops.int8_table_eligible(Cin, groups, deform_groups):
+        return dcn_ops.modulated_deform_conv2d_int8(x, offset, mask, weight, bias, stride,
+                                                    padding, dilation, groups, deform_groups,
+                                                    layout)
+    return dcn_ops.modulated_deform_conv2d_plain(x, offset, mask, weight, bias, stride, padding,
+                                                 dilation, groups, deform_groups, layout)
+
+
+# op: (module, the function that launches its kernel, its plain version)
 WRAPPERS = {
-    "msda": (msda_ops, "multi_scale_deformable_attn", "multi_scale_deformable_attn_plain"),
-    "flash": (attn_ops, "flash_attention", "qkv_plain"),
-    "dcn": (dcn_ops, "deform_im2col", "deform_im2col_plain"),
-    "int8_gemm": (int8_ops, "int8_matmul", "int8_matmul_plain"),
+    "msda": (msda_ops, "multi_scale_deformable_attn", msda_ops.multi_scale_deformable_attn_plain),
+    "flash": (attn_ops, "flash_attention", attn_ops.qkv_plain),
+    "dcn": (dcn_ops, "modulated_deform_conv2d", dcn_float_plain),
+    "int8_gemm": (int8_ops, "int8_matmul", int8_ops.int8_matmul_plain),
     "msda_int8": (msda_ops, "multi_scale_deformable_attn_int8",
-                  "multi_scale_deformable_attn_int8_plain"),
-    "flash_int8": (attn_ops, "flash_attention_int8", "flash_attention_int8_plain"),
-    "dcn_int8": (dcn_ops, "deform_im2col_int8", "deform_im2col_int8_plain"),
+                  msda_ops.multi_scale_deformable_attn_int8_plain),
+    "flash_int8": (attn_ops, "flash_attention_int8", attn_ops.flash_attention_int8_plain),
+    "dcn_int8": (dcn_ops, "modulated_deform_conv2d_int8",
+                 dcn_ops.modulated_deform_conv2d_int8_plain),
 }
 QUANT = {"none": False, "qdq": True, "int8": "int8"}
 
@@ -67,7 +83,7 @@ def plain_versions(names=tuple(WRAPPERS)):
     saved = {n: getattr(WRAPPERS[n][0], WRAPPERS[n][1]) for n in names}
     for n in names:
         mod, wrapper, plain = WRAPPERS[n]
-        setattr(mod, wrapper, getattr(mod, plain))
+        setattr(mod, wrapper, plain)
     try:
         yield
     finally:

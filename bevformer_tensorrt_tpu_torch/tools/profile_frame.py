@@ -8,8 +8,9 @@ Runs BEVFormer tiny, small or base with seeded weights on synthetic frames of on
 `BEVFormerEngine`: first the host-clock frame latency (each frame ends in a
 synchronise), then a `torch.profiler` window over the same number of
 frames.  Prints the device time per frame by kernel family and the top
-kernels, and the device busy share: the union of the kernels' intervals
-over the profiled window's wall time.  TF32 is off, as in chip_smoke.py.
+kernels, the device busy share (the union of the kernels' intervals over
+the profiled window's wall time) and the peak device memory the timed
+frames allocated.  TF32 is off, as in chip_smoke.py.
 With `--quant qdq` or `--quant int8` the model is calibrated first (`max`,
 two frames); `--exclude self_attn/msda_tables dcn_tables` keeps a DCN
 backbone's gather tables in floating point under int8.
@@ -39,8 +40,11 @@ FAMILIES = (  # first match wins
     ("flash int8 kernel", r"flash_int8_kernel"),
     ("msda kernel", r"msda_kernel"),
     ("flash kernel", r"flash_kernel"),
-    ("dcn int8 kernel", r"dcn_im2col_kernel<signed char"),
-    ("dcn kernel", r"dcn_im2col_kernel"),
+    ("dcn int8 kernel", r"dcn_(wgmma|ffma)_kernel<[^>]*signed char"),
+    ("dcn kernel", r"dcn_(wgmma|ffma)_kernel"),
+    ("dcn table kernel", r"dcn_(table|amax)_kernel"),
+    ("dcn im2col int8 kernel", r"dcn_im2col_kernel<signed char"),
+    ("dcn im2col kernel", r"dcn_im2col_kernel"),
     ("memcpy", r"[Mm]emcpy|[Mm]emset"),
     # cuDNN's direct, implicit-GEMM and FFT convolutions; complex (cf32,
     # float2) kernels come only from the FFT convolutions in this model
@@ -98,11 +102,13 @@ def main(argv=None):
     torch.cuda.synchronize()
 
     lat = []
+    torch.cuda.reset_peak_memory_stats()
     for f in frames[2:2 + args.frames]:
         t0 = time.perf_counter()
         engine.infer_frame(**f)
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
 
     ops.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -125,7 +131,7 @@ def main(argv=None):
     device_ms = sum(by_family.values())
     res = dict(
         card=card, model=args.model, dtype=args.dtype, quant=args.quant, frames=n,
-        latency_ms_median=float(np.median(lat)), latency_ms=lat,
+        latency_ms_median=float(np.median(lat)), latency_ms=lat, peak_memory_mb=peak_mb,
         profiled_wall_ms_per_frame=window_ms / n, device_ms_per_frame=device_ms,
         device_busy_share=busy / window_ms, kernels_per_frame=len(kernels) / n,
         launches_per_frame={fn.__name__: fn.launches / n for fn in ops.KERNEL_WRAPPERS},
@@ -136,7 +142,7 @@ def main(argv=None):
     print(f"{card}: {args.model} {args.dtype} quant={args.quant} frame latency median {res['latency_ms_median']:.3f} ms "
           f"(host clock, {n} frames); profiled {res['profiled_wall_ms_per_frame']:.3f} ms/frame, "
           f"device kernels {device_ms:.3f} ms/frame, busy share {res['device_busy_share']:.3f}, "
-          f"{res['kernels_per_frame']:.0f} kernels/frame")
+          f"{res['kernels_per_frame']:.0f} kernels/frame, peak device memory {peak_mb:.0f} MB")
     for fam, ms in res["families_ms_per_frame"].items():
         print(f"  {fam:18s} {ms:9.4f} ms/frame")
     for k in res["top_kernels"]:

@@ -9,24 +9,35 @@ Phases (any failure exits non-zero before the result lines):
   1. MSDA kernel vs its plain version on the card, at the shapes of the
      main paths of BEVFormer-tiny and BEVFormer-base (temporal
      self-attention, spatial cross-attention, decoder cross-attention) and
-     at the edges of its launch geometry (ch 16 and 64, 64 taps a head),
-     float32 and bfloat16, with samples past every border.
+     at the edges of its launch geometry (ch 16 and 64, 64 taps a head, 320
+     taps a head in two passes, ch 256 in two chunks, 64 heads x 256 taps
+     in four passes), float32 and bfloat16, with samples past every border.
   2. Flash-attention kernel vs its plain version: (8, 900, 32), a ragged
      length and head dim 64, float32 and bfloat16;
      `scaled_dot_product_attention` is timed beside it as a yardstick.
-  3. DCNv2: the deformable im2col kernel and the whole op vs their plain
-     versions at the stage-3 and stage-4 shapes of base and small and one
-     shape with stride 2, two deform groups and a ragged size, float32 and
-     bfloat16, offsets past every border; cuDNN's ordinary `F.conv2d` of
-     the same shape is timed beside it as a yardstick.
+  3. DCNv2: the whole op vs its plain version, NCHW and NHWC, at the
+     stage-3 and stage-4 shapes of base and small, one shape with stride 2,
+     two deform groups and a ragged size, and one with two groups, float32
+     (the im2col route) and bfloat16 (the fused kernel and its gather
+     table, bit for bit the map with its channels last); the deformable
+     im2col kernel vs its plain version; offsets past every border; the op
+     timed beside the parent's route (im2col kernel, then the product),
+     cuDNN's ordinary `F.conv2d` of the same shape and the op's bound (the
+     op as the model calls it, its weight matrix kept); the fused kernel
+     alone in each tile configuration; for float32 also the fused FFMA
+     kernel on the map with its table, which the dtype rule of ops/dcn.py
+     weighs against the route.
   4. BEVFormer-tiny at full width through `BEVFormerEngine`, seeded weights,
      6 random images on a 6-camera rig: three frames (new scene, temporal,
      scene change) with the launch counts set to 0 just before and read
      just after; then the same frames through the plain versions on the
      card, which must agree; the frame latency; one bfloat16 pass.
   5. BEVFormer-base at full width (R101 with DCN, four levels, 200x200 BEV),
-     the same way: exactly 18 MSDA, 6 flash and 26 DCN launches per frame.
-  6. One BEVFormer-small frame at full width: 12 / 6 / 26 launches.
+     the same way: exactly 18 MSDA, 6 flash and 26 DCN launches per frame
+     (float32: 26 im2col; bfloat16: 26 fused, 26 gather tables, no im2col),
+     peak device memory.
+  6. One BEVFormer-small frame at full width in float32 and one in
+     bfloat16: 12 / 6 / 26 launches, as at base.
   7. The int8 product kernel vs its plain version (bit for bit) at named
      shapes of the quantized path: dense layers, a 1x1 and a 3x3 convolution
      with K = 4608 as matrices, the odd shapes K = 18, K = 147, N = 3, and
@@ -51,20 +62,24 @@ Phases (any failure exits non-zero before the result lines):
      launched.
  11. BEVFormer-base under quant="int8", default policy (only TSA's tables
      stay floating point), the same way with fewer frames: 12 int8-table and
-     6 floating-point MSDA, 6 int8 flash, 26 int8-table DCN and no
-     floating-point DCN launches per frame.  Then one frame with
-     `dcn_tables` excluded as well (26 floating-point DCN launches, no
-     int8-table ones), and one BEVFormer-small frame under the default
-     policy (3 + 9 MSDA, 6 int8 flash, 26 int8-table DCN).
+     6 floating-point MSDA, 6 int8 flash, 26 int8-table DCN (fused kernel
+     and gather table) and no floating-point DCN or im2col launches per
+     frame.  Then one frame with `dcn_tables` excluded as well (26
+     floating-point DCN launches, no int8-table ones), and one
+     BEVFormer-small frame under the default policy (3 + 9 MSDA, 6 int8
+     flash, 26 int8-table DCN); peak device memory.
  12. One JSON line of per-kernel numbers, the nvidia-smi line of the card,
      and the final `{"ok": true, "device": ...}` line.
 Ahead of phase 10, three phases of their own:
-  a. The int8-table im2col kernel vs its plain version at the stage-3 and
-     stage-4 shapes of base and small and one shape with stride 2, channel
-     groups of 32 and a ragged size, NCHW and NHWC, float32 and bfloat16
-     activations, offsets past every border; the quantizer vs its formula;
-     the kernel alone, the quantization, both, and the floating-point kernel
-     timed at the same shape.
+  a. The DCN op from the int8 table (the fused kernel, float32 and
+     bfloat16 activations) vs its plain version, NCHW and NHWC, at the
+     stage-3 and stage-4 shapes of base and small and one shape with stride
+     2, channel groups of 32 and a ragged size, offsets past every border;
+     the gather table's int8 codes bit for bit `quantize_dcn_table`'s; the
+     int8 im2col kernel (the old route) vs its plain version; the op (its
+     weight matrix kept, as the model keeps it) timed beside the parent's
+     route (the table by plain passes, the int8 im2col, the product), the
+     table kernel and the im2col kernel alone.
   b. The gather probes (`gather_rows`, `gather_blend`) vs their plain
      versions at the base and tiny cross-attention shapes for float32,
      bfloat16 and int8 rows, `torch.gather` timed beside the row gather and
@@ -177,8 +192,9 @@ def max_err(got, want, dtype, what):
     return err
 
 
-MSDA_CASES = ([(name, spec[:5], 32, spec[5], spec[6]) for name, spec in MSDA_SHAPES.items()]
-              + [(name, spec[:5], spec[5], 0, 0) for name, spec in MSDA_EDGE_SHAPES.items()])
+MSDA_CASES = ([(name, spec[:5], 32, 8, spec[5], spec[6]) for name, spec in MSDA_SHAPES.items()]
+              + [(name, spec[:5], spec[5], spec[6], 0, 0)
+                 for name, spec in MSDA_EDGE_SHAPES.items()])
 
 
 def msda_geometry(value, table, ref, attn, shapes):
@@ -191,8 +207,9 @@ def msda_geometry(value, table, ref, attn, shapes):
 def phase_msda(dev, gen):
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for name, spec, ch, per_tiny, per_base in MSDA_CASES:
-            (value, ref, off, attn), shapes = kc.msda_inputs(spec, dtype, gen, dev, ch=ch)
+        for name, spec, ch, heads, per_tiny, per_base in MSDA_CASES:
+            (value, ref, off, attn), shapes = kc.msda_inputs(spec, dtype, gen, dev, heads=heads,
+                                                             ch=ch)
             got = msda_ops.multi_scale_deformable_attn(value, ref, off, attn, shapes)
             want = msda_ops.multi_scale_deformable_attn_plain(value, ref, off, attn, shapes)
             torch.cuda.synchronize()
@@ -206,7 +223,8 @@ def phase_msda(dev, gen):
                 lambda: msda_ops.multi_scale_deformable_attn_plain(value, ref, off, attn, shapes),
                 n=3, repeats=3)
             row = dict(shape=name, dtype=dtype_name(dtype), bs=bs, nq=nq, levels=shapes,
-                       P=P, ch=ch, launches_per_frame={"tiny": per_tiny, "base": per_base},
+                       P=P, ch=ch, heads=heads,
+                       launches_per_frame={"tiny": per_tiny, "base": per_base},
                        geometry=msda_geometry(value, value, ref, attn, shapes),
                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                        value_table_mb=value.numel() * esz / 1e6, gathered_mb=gathered * esz / 1e6)
@@ -241,61 +259,106 @@ def phase_flash(dev, gen):
     return rows
 
 
+def dcn_route_ms(x, off, mask, weight, geo, groups, table=None):
+    """The parent's route for the whole op, timed: the deformable im2col
+    kernel (from the float map, or from an int8 table made ahead), then the
+    product with the weight (`col_product`)."""
+    Ho, Wo = off.shape[1:3] if geo["layout"] == "NHWC" else off.shape[2:]
+    if table is None:
+        return device_ms(lambda: dcn_ops.col_product(
+            dcn_ops.deform_im2col(x, off, mask, (3, 3), **geo), weight, None, Ho, Wo,
+            geo["layout"], groups))
+    return device_ms(lambda: dcn_ops.col_product(
+        dcn_ops.deform_im2col_int8(*table, off, mask, (3, 3), **geo), weight.to(off.dtype),
+        None, Ho, Wo, geo["layout"], groups))
+
+
 def phase_dcn(dev, gen):
-    """The im2col kernel against its plain version (the kernels line's `ms`,
-    `plain_ms`, `bound_ms`), and the whole op (im2col, then the product with
-    the weight) against the per-tap plain op."""
+    """The whole op against its plain version, NCHW and NHWC: bfloat16 on the
+    fused kernel, float32 on the im2col route (the dtype rule of ops/dcn.py);
+    the fused kernel timed beside the parent's route (im2col kernel, then the
+    product), cuDNN's ordinary `F.conv2d` of the same shape and the op's
+    bound; the gather table kernel against its plain version (bit for bit);
+    the im2col kernel against its plain version (the kernels line's
+    `dcn_im2col` entry)."""
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for name, spec in DCN_SHAPES.items():
-            N, Cin, H, W, Cout, stride, dg, per_base, per_small = spec
+            N, Cin, H, W, Cout, stride, dg, per_base, per_small, groups = spec
             Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
-            x, off, mask, weight, geo = kc.dcn_inputs(spec, dtype, gen, dev)
-
+            errs = {}
+            for layout in ("NHWC", "NCHW"):  # the timings below use the model's NCHW
+                x, off, mask, weight, geo = kc.dcn_inputs(spec, dtype, gen, dev, layout)
+                got = dcn_ops.modulated_deform_conv2d(x, off, mask, weight, None, groups=groups,
+                                                      **geo)
+                want = dcn_ops.modulated_deform_conv2d_plain(x, off, mask, weight, None,
+                                                             groups=groups, **geo)
+                torch.cuda.synchronize()
+                errs[layout] = max_err(got, want, dtype, f"dcn op {name} {layout} {dtype}")
+                del got, want
+            table, _ = dcn_ops.dcn_gather_table(x)
+            if not torch.equal(table, dcn_ops.dcn_gather_table_plain(x)[0]):
+                raise AssertionError(f"dcn gather table {name} {dtype}: not the map, channels last")
+            del table
             col = dcn_ops.deform_im2col(x, off, mask, (3, 3), **geo)
             col_plain = dcn_ops.deform_im2col_plain(x, off, mask, (3, 3), **geo)
             torch.cuda.synchronize()
             err = max_err(col, col_plain, dtype, f"dcn im2col {name} {dtype}")
             del col, col_plain
-            got = dcn_ops.modulated_deform_conv2d(x, off, mask, weight, None, groups=1, **geo)
-            want = dcn_ops.modulated_deform_conv2d_plain(x, off, mask, weight, None, groups=1,
-                                                         **geo)
-            torch.cuda.synchronize()
-            op_err = max_err(got, want, dtype, f"dcn op {name} {dtype}")
-            del got, want
 
             nbytes, flops, col_bytes = kc.dcn_work(spec, x.element_size())
             b_ms, b_by = bound(nbytes, flops, dtype)
-            gemm_flops = 2 * N * Cout * 9 * Cin * Ho * Wo
+            op_b_ms, op_b_by = bound(*kc.dcn_op_work(spec, x.element_size()), dtype)
+            t_b_ms, t_b_by = bound(2 * x.numel() * x.element_size(), 0, dtype)
+            gemm_flops = 2 * N * Cout * 9 * (Cin // groups) * Ho * Wo
             ms = device_ms(lambda: dcn_ops.deform_im2col(x, off, mask, (3, 3), **geo))
-            # the same launch with zero offsets (an ordinary im2col): what is
-            # left of the time when neighbouring pixels read neighbouring addresses
-            zero = torch.zeros_like(off)
-            ms_zero = device_ms(lambda: dcn_ops.deform_im2col(x, zero, mask, (3, 3), **geo))
-            del zero
+            # the op as the model calls it: the weight matrix kept (DeformConv2d)
+            wmat = dcn_ops.dcn_weight_matrix(weight, dtype) if dtype == torch.bfloat16 else None
             op_ms = device_ms(lambda: dcn_ops.modulated_deform_conv2d(
-                x, off, mask, weight, None, groups=1, **geo))
+                x, off, mask, weight, None, groups=groups, wmat=wmat, **geo))
+            table_ms = table_plain_ms = None
+            if dtype == torch.bfloat16:  # the op itself; for float32 the route below
+                fused_ms = op_ms
+                table_ms = device_ms(lambda: dcn_ops.dcn_gather_table(x))
+                table_plain_ms = device_ms(lambda: dcn_ops.dcn_gather_table_plain(x))
+            else:  # the fused FFMA kernel on the float map, its table included: what the
+                # dtype rule weighs against the route
+                def fused_float():
+                    dcn_ops.fused_launcher(x, off, mask, weight, None, stride, 1, 1, groups, dg,
+                                           "NCHW", False)[1]()
+                fused_ms = device_ms(fused_float)
+            route_ms = dcn_route_ms(x, off, mask, weight, geo, groups)
+            _, launch = dcn_ops.fused_launcher(x, off, mask, weight, None, stride, 1, 1, groups,
+                                               dg, "NCHW", False)
+            config_ms = {c: device_ms(lambda: launch(c))  # the kernel alone, table made ahead
+                         for c, v in dcn_ops.DCN_CONFIGS.items() if v[0] == dtype}
             plain_ms = device_ms(lambda: dcn_ops.deform_im2col_plain(x, off, mask, (3, 3), **geo),
                                  n=2, repeats=3)
             op_plain_ms = device_ms(lambda: dcn_ops.modulated_deform_conv2d_plain(
-                x, off, mask, weight, None, groups=1, **geo), n=2, repeats=3)
+                x, off, mask, weight, None, groups=groups, **geo), n=2, repeats=3)
             wd = weight.to(dtype)
-            lib_ms = device_ms(lambda: F.conv2d(x, wd, None, stride, 1))
+            lib_ms = device_ms(lambda: F.conv2d(x, wd, None, stride, 1, 1, groups))
             row = dict(shape=name, dtype=dtype_name(dtype), x=[N, Cin, H, W], Cout=Cout,
-                       stride=stride, deform_groups=dg,
+                       stride=stride, deform_groups=dg, groups=groups,
                        launches_per_frame={"base": per_base, "small": per_small},
-                       max_abs_err=err, op_max_abs_err=op_err, ms=ms, ms_zero_offsets=ms_zero,
-                       op_ms=op_ms,
+                       max_abs_err=err, op_max_abs_err=errs["NCHW"],
+                       op_max_abs_err_nhwc=errs["NHWC"], ms=ms, op_ms=op_ms,
+                       fused_ms=fused_ms, config_ms=config_ms, table_ms=table_ms,
+                       table_plain_ms=table_plain_ms,
+                       table_bound_by="bytes", table_max_abs_err=0.0, route_ms=route_ms,
                        plain_ms=plain_ms, op_plain_ms=op_plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       op_bound_ms=op_b_ms, op_bound_by=op_b_by,
+                       table_bound_ms=t_b_ms if dtype == torch.bfloat16 else None,
                        library_ms=None, op_library_ms=lib_ms, column_mb=col_bytes / 1e6,
-                       gemm_gflop=gemm_flops / 1e9,
-                       gemm_bound_ms=gemm_flops / PEAK_FLOPS[dtype] * 1e3)
+                       gemm_gflop=gemm_flops / 1e9, op_tflops=gemm_flops / op_ms / 1e9)
             rows.append(row)
-            log(f"dcn {name:9s} {row['dtype']:9s} err im2col {err:.3e} op {op_err:.3e}  "
-                f"im2col {ms:.4f} ms (zero offsets {ms_zero:.4f})  op {op_ms:.4f} ms  "
-                f"plain im2col {plain_ms:.3f} ms  plain op {op_plain_ms:.3f} ms  "
-                f"conv2d {lib_ms:.4f} ms  "
-                f"bound {b_ms * 1e3:.2f} us ({b_by}), columns {col_bytes / 1e6:.1f} MB")
+            log(f"dcn {name:9s} {row['dtype']:9s} err op NCHW {errs['NCHW']:.3e} NHWC "
+                f"{errs['NHWC']:.3e} im2col {err:.3e}  op {op_ms:.4f} ms "
+                f"({row['op_tflops']:.1f} TFLOP/s; bound {op_b_ms * 1e3:.1f} us, {op_b_by})  "
+                f"fused {fused_ms:.4f} ms (by tile {json.dumps(config_ms)})  parent route "
+                f"{route_ms:.4f} ms  conv2d {lib_ms:.4f} ms  "
+                + (f"table {table_ms:.4f} ms  " if table_ms is not None else "")
+                + f"im2col {ms:.4f} ms (bound {b_ms * 1e3:.2f} us)  plain op {op_plain_ms:.3f} ms")
             del x, off, mask, weight, wd
             torch.cuda.empty_cache()
     return rows
@@ -362,13 +425,15 @@ def phase_msda_int8(dev, gen):
     """MSDA from int8 value tables against its plain version.  `ms` is the
     wrapper (three plain passes quantize the value per (batch, head), then
     the kernel); `kernel_ms` the kernel alone on a table made ahead."""
-    cases = ([(name, MSDA_SHAPES[shape][:5], 32, per_tiny, per_base)
+    cases = ([(name, MSDA_SHAPES[shape][:5], 32, 8, per_tiny, per_base)
               for name, (shape, per_tiny, per_base) in MSDA_INT8_SHAPES.items()]
-             + [(name, spec[:5], spec[5], 0, 0) for name, spec in MSDA_EDGE_SHAPES.items()])
+             + [(name, spec[:5], spec[5], spec[6], 0, 0)
+                for name, spec in MSDA_EDGE_SHAPES.items()])
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for name, spec, ch, per_tiny, per_base in cases:
-            (value, ref, off, attn), shapes = kc.msda_inputs(spec, dtype, gen, dev, ch=ch)
+        for name, spec, ch, heads, per_tiny, per_base in cases:
+            (value, ref, off, attn), shapes = kc.msda_inputs(spec, dtype, gen, dev, heads=heads,
+                                                             ch=ch)
             op = msda_ops.multi_scale_deformable_attn_int8
             got = op(value, ref, off, attn, shapes)
             want = msda_ops.multi_scale_deformable_attn_int8_plain(value, ref, off, attn, shapes)
@@ -386,7 +451,7 @@ def phase_msda_int8(dev, gen):
             plain_ms = device_ms(lambda: msda_ops.multi_scale_deformable_attn_int8_plain(
                 value, ref, off, attn, shapes), n=3, repeats=3)
             row = dict(shape=name, dtype=dtype_name(dtype), bs=bs, nq=nq, levels=shapes, P=P,
-                       ch=ch, launches_per_frame={"tiny": per_tiny, "base": per_base},
+                       ch=ch, heads=heads, launches_per_frame={"tiny": per_tiny, "base": per_base},
                        geometry=msda_geometry(value, table[0], ref, attn, shapes),
                        max_abs_err=err, ms=ms, kernel_ms=kernel_ms, float_kernel_ms=float_ms,
                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -442,46 +507,45 @@ def phase_flash_int8(dev, gen):
 
 
 def phase_dcn_int8(dev, gen):
-    """The int8 im2col kernel against its plain version, NCHW and NHWC, and
-    the quantizer against its formula.  `ms` is the kernel alone on a table
-    made ahead, `quantize_ms` the plain passes that make the table,
-    `wrapper_ms` both, `float_kernel_ms` the floating-point kernel at the
-    same shape, `op_ms` the whole op under quant="int8" (quantize, im2col,
-    product with the weight)."""
+    """The op from the int8 table (the fused kernel, both activation dtypes)
+    against its plain version, NCHW and NHWC; the gather table's int8 codes
+    against `quantize_dcn_table` (bit for bit) with one channel group far
+    louder than the rest and one silent; the int8 im2col kernel (the old
+    route, the yardstick) against its plain version.  `op_ms` is the whole
+    op under quant="int8" (the table kernel, then the fused kernel),
+    `table_ms` the table kernel with its scale, `route_ms` the parent's route
+    (the table by plain passes, the int8 im2col kernel, the product), `ms` the
+    int8 im2col kernel alone on a table made ahead."""
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for name, spec in DCN_INT8_SHAPES.items():
-            N, Cin, H, W, Cout, stride, dg, per_base, per_small = spec
+            N, Cin, H, W, Cout, stride, dg, per_base, per_small, groups = spec
             chg = dcn_ops.dcn_ch_group(Cin)
-            errs = {}
+            errs, im2col_errs = {}, {}
             for layout in ("NHWC", "NCHW"):  # the timings below use the model's NCHW
                 x, off, mask, weight, geo = kc.dcn_inputs(spec, dtype, gen, dev, layout)
-                # one channel group far louder than the rest, one silent
                 c_axis = 3 if layout == "NHWC" else 1
                 x.narrow(c_axis, 0, chg).mul_(7.0)
                 x.narrow(c_axis, Cin - chg, chg).zero_()
-                q, scale = dcn_ops.quantize_dcn_table(x, chg, layout)
-                xg = (x if layout == "NCHW" else x.permute(0, 3, 1, 2)).float()
-                xg = xg.reshape(N, Cin // chg, chg, H * W)
-                want_scale = xg.abs().amax(dim=(2, 3)).clamp_min(1e-12) / 127.0
-                want_q = torch.round(xg / want_scale[:, :, None, None]).clamp(-127, 127)
-                want_q = want_q.reshape(N, Cin, H, W).to(torch.int8)
-                got_q = q if layout == "NCHW" else q.permute(0, 3, 1, 2)
-                if not (torch.equal(scale, want_scale) and torch.equal(got_q, want_q)
-                        and bool((got_q[:, Cin - chg:] == 0).all())):
-                    raise AssertionError(f"dcn int8 quantizer {name} {layout} {dtype}")
+                codes, scale = dcn_ops.dcn_gather_table(x, layout, chg)
+                q, want_scale = dcn_ops.quantize_dcn_table(x, chg, layout)
+                want_codes = q if layout == "NHWC" else q.permute(0, 2, 3, 1)
+                if not (torch.equal(scale, want_scale) and torch.equal(codes, want_codes)
+                        and bool((codes[..., Cin - chg:] == 0).all())):
+                    raise AssertionError(f"dcn gather table codes {name} {layout} {dtype}")
+                got = dcn_ops.modulated_deform_conv2d(x, off, mask, weight, None, quant="int8",
+                                                      **geo)
+                want = dcn_ops.modulated_deform_conv2d_plain(x, off, mask, weight, None,
+                                                             quant="int8", **geo)
+                torch.cuda.synchronize()
+                errs[layout] = max_err(got, want, dtype, f"dcn int8 op {name} {layout} {dtype}")
                 col = dcn_ops.deform_im2col_int8(q, scale, off, mask, (3, 3), **geo)
                 col_plain = dcn_ops.deform_im2col_int8_plain(q, scale, off, mask, (3, 3), **geo)
                 torch.cuda.synchronize()
-                errs[layout] = max_err(col, col_plain, dtype,
-                                       f"dcn int8 im2col {name} {layout} {dtype}")
-                del col, col_plain
-            got = dcn_ops.modulated_deform_conv2d(x, off, mask, weight, None, quant="int8", **geo)
-            want = dcn_ops.modulated_deform_conv2d_plain(x, off, mask, weight, None,
-                                                         quant="int8", **geo)
+                im2col_errs[layout] = max_err(col, col_plain, dtype,
+                                              f"dcn int8 im2col {name} {layout} {dtype}")
+                del col, col_plain, codes, want_codes
             full = dcn_ops.modulated_deform_conv2d(x, off, mask, weight, None, **geo)
-            torch.cuda.synchronize()
-            op_err = max_err(got, want, dtype, f"dcn int8 op {name} {dtype}")
             table_err = float((got.float() - full.float()).abs().max() / full.float().abs().max())
             if not 1e-4 < table_err < 5e-2:
                 raise AssertionError(f"dcn int8 op {name} {dtype}: {table_err} from the "
@@ -491,31 +555,42 @@ def phase_dcn_int8(dev, gen):
             esz = x.element_size()
             nbytes, flops, col_bytes = kc.dcn_work(spec, esz, 1, scale.numel() * 4)
             b_ms, b_by = bound(nbytes, flops, dtype)
-            wb_ms, _ = bound(*kc.dcn_work(spec, esz)[:2], dtype)  # the wrapper reads x itself
+            op_b_ms, op_b_by = bound(*kc.dcn_op_work(spec, esz, scale.numel() * 4), dtype)
             ms = device_ms(lambda: dcn_ops.deform_im2col_int8(q, scale, off, mask, (3, 3), **geo))
-            quantize_ms = device_ms(lambda: dcn_ops.quantize_dcn_table(x, chg))
-            wrapper_ms = device_ms(lambda: dcn_ops.deform_im2col_int8(
-                *dcn_ops.quantize_dcn_table(x, chg), off, mask, (3, 3), **geo))
-            float_ms = device_ms(lambda: dcn_ops.deform_im2col(x, off, mask, (3, 3), **geo))
+            table_ms = device_ms(lambda: dcn_ops.dcn_gather_table(x, "NCHW", chg))
+            table_plain_ms = device_ms(lambda: dcn_ops.dcn_gather_table_plain(x, "NCHW", chg))
+            t_b_ms, _ = bound(x.numel() * (esz + 1) + scale.numel() * 4, 0, dtype)
+            wmat = dcn_ops.dcn_weight_matrix(weight, dtype)  # kept, as the model keeps it
             op_ms = device_ms(lambda: dcn_ops.modulated_deform_conv2d(
-                x, off, mask, weight, None, quant="int8", **geo))
+                x, off, mask, weight, None, quant="int8", wmat=wmat, **geo))
+            route_ms = device_ms(lambda: dcn_ops.col_product(
+                dcn_ops.deform_im2col_int8(*dcn_ops.quantize_dcn_table(x, chg), off, mask, (3, 3),
+                                           **geo), weight, None, (H - 1) // stride + 1,
+                (W - 1) // stride + 1, "NCHW"))
             plain_ms = device_ms(lambda: dcn_ops.deform_im2col_int8_plain(
                 q, scale, off, mask, (3, 3), **geo), n=2, repeats=3)
+            op_plain_ms = device_ms(lambda: dcn_ops.modulated_deform_conv2d_plain(
+                x, off, mask, weight, None, quant="int8", **geo), n=2, repeats=3)
+            gemm_flops = 2 * N * Cout * 9 * Cin * ((H - 1) // stride + 1) * ((W - 1) // stride + 1)
             row = dict(shape=name, dtype=dtype_name(dtype), x=[N, Cin, H, W], Cout=Cout,
                        stride=stride, ch_group=chg,
                        launches_per_frame={"base": per_base, "small": per_small},
-                       max_abs_err=errs["NCHW"], max_abs_err_nhwc=errs["NHWC"],
-                       op_max_abs_err=op_err, err_vs_float_op=table_err, ms=ms,
-                       quantize_ms=quantize_ms, wrapper_ms=wrapper_ms, float_kernel_ms=float_ms,
-                       op_ms=op_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       wrapper_bound_ms=wb_ms, library_ms=None, column_mb=col_bytes / 1e6)
+                       max_abs_err=im2col_errs["NCHW"], max_abs_err_nhwc=im2col_errs["NHWC"],
+                       op_max_abs_err=errs["NCHW"], op_max_abs_err_nhwc=errs["NHWC"],
+                       err_vs_float_op=table_err, ms=ms, table_ms=table_ms,
+                       table_plain_ms=table_plain_ms, table_bound_ms=t_b_ms,
+                       table_bound_by="bytes", table_max_abs_err=0.0, op_ms=op_ms,
+                       route_ms=route_ms, plain_ms=plain_ms, op_plain_ms=op_plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, op_bound_ms=op_b_ms, op_bound_by=op_b_by,
+                       library_ms=None, column_mb=col_bytes / 1e6,
+                       op_tflops=gemm_flops / op_ms / 1e9)
             rows.append(row)
-            log(f"dcn int8 {name:9s} {row['dtype']:9s} err NCHW {errs['NCHW']:.3e} NHWC "
-                f"{errs['NHWC']:.3e} op {op_err:.3e} (vs float op {table_err:.3e})  kernel alone "
-                f"{ms:.4f} ms  quantize {quantize_ms:.4f}  wrapper {wrapper_ms:.4f}  float "
-                f"kernel {float_ms:.4f}  op {op_ms:.4f}  plain {plain_ms:.3f} ms  bound "
-                f"{b_ms * 1e3:.2f} us ({b_by}; wrapper {wb_ms * 1e3:.2f} us)")
-            del x, off, mask, weight, q, scale
+            log(f"dcn int8 {name:9s} {row['dtype']:9s} err op NCHW {errs['NCHW']:.3e} NHWC "
+                f"{errs['NHWC']:.3e} (vs float op {table_err:.3e}), codes exact  op {op_ms:.4f} ms "
+                f"(table {table_ms:.4f}; bound {op_b_ms * 1e3:.1f} us, {op_b_by})  parent route "
+                f"{route_ms:.4f} ms  int8 im2col {ms:.4f} ms (err {im2col_errs['NCHW']:.3e})  "
+                f"plain op {op_plain_ms:.3f} ms")
+            del x, off, mask, weight, q, scale, wmat
             torch.cuda.empty_cache()
     return rows
 
@@ -634,11 +709,16 @@ def phase_int8_frame(make_cfg, card, exclude, want, scales=None, calib_frames=1,
     _, layer_calls, not_int8 = record_gemm_shapes(engine, frames[0])  # also the warm-up
     if not_int8:
         raise AssertionError(f"{name}: {not_int8} dense or conv layers do not run int8")
-    want = (*want[:3], layer_calls, *want[3:], 0, 0)
+    msda, flash, dcn, msda8, flash8, dcn8 = want
+    want = counts_of(msda=msda, flash_attn=flash, dcn_im2col=dcn, int8_gemm=layer_calls,
+                     msda_int8=msda8, flash_int8=flash8, dcn_int8=dcn8, dcn_table=dcn8)
     reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     (bev, classes, coords), = run_frames(engine, frames)
     counts = launch_counts()
-    log(f"{name} main path: launches {dict(zip(COUNT_NAMES, counts))}")
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    log(f"{name} main path: launches {dict(zip(COUNT_NAMES, counts))}, peak device memory "
+        f"{peak_mb:.0f} MB")
     if counts != want:
         raise AssertionError(f"{name}: expected {want} launches per frame, got {counts}")
     shapes = tuple(tuple(t.shape) for t in (bev, classes, coords))
@@ -653,7 +733,7 @@ def phase_int8_frame(make_cfg, card, exclude, want, scales=None, calib_frames=1,
     del engine
     torch.cuda.empty_cache()
     return dict(launches=dict(zip(COUNT_NAMES, counts)), latency_ms_median=float(np.median(lat)),
-                latency_ms=lat, int8_layer_calls_per_frame=layer_calls)
+                latency_ms=lat, int8_layer_calls_per_frame=layer_calls, peak_memory_mb=peak_mb)
 
 
 def phase_checkpoint(card):
@@ -681,12 +761,20 @@ def phase_checkpoint(card):
     return dict(upstream_keys=len(upstream), tensors=len(loaded_sd))
 
 
-COUNT_NAMES = ("msda", "flash_attn", "dcn_im2col", "int8_gemm", "msda_int8", "flash_int8",
-               "dcn_im2col_int8", "gather_rows", "gather_blend")
+COUNT_NAMES = ("msda", "flash_attn", "dcn", "int8_gemm", "msda_int8", "flash_int8", "dcn_int8",
+               "dcn_table", "gather_rows", "gather_blend", "dcn_im2col", "dcn_im2col_int8")
 
 
 def launch_counts():
     return tuple(fn.launches for fn in KERNEL_WRAPPERS)
+
+
+def counts_of(**named):
+    """A tuple of launch counts in KERNEL_WRAPPERS' order, 0 where not named."""
+    unknown = set(named) - set(COUNT_NAMES)
+    if unknown:
+        raise KeyError(f"no launch counter {sorted(unknown)}")
+    return tuple(named.get(n, 0) for n in COUNT_NAMES)
 
 
 def record_gemm_shapes(engine, frame):
@@ -759,7 +847,10 @@ def phase_int8_model(make_cfg, card, dev, gen, exclude, want, calib_frames, meth
     if not_int8:
         raise AssertionError(f"{name}: {not_int8} dense or conv layers do not run int8")
     msda, flash, dcn, msda8, flash8, dcn8 = want
-    per_frame_want = (msda, flash, dcn, layer_calls, msda8, flash8, dcn8, 0, 0)
+    # the DCN op: the float table on the im2col route (float32 activations),
+    # the int8 table on the fused kernel with its gather table
+    per_frame_want = counts_of(msda=msda, flash_attn=flash, dcn_im2col=dcn, int8_gemm=layer_calls,
+                               msda_int8=msda8, flash_int8=flash8, dcn_int8=dcn8, dcn_table=dcn8)
     reset_launch_counts()
     engine.reset()
     per_frame, outs = [], []
@@ -792,13 +883,13 @@ def phase_int8_model(make_cfg, card, dev, gen, exclude, want, calib_frames, meth
         "kernel and on its plain version")
     res_backbone = {}
     if dcn8:
-        # the int8 im2col sums its corners in another order than its plain
-        # version, ahead of every later quantization step of the backbone
+        # the fused kernel sums its corners and products in another order than
+        # its plain version, ahead of every later quantization step of the backbone
         with plain_versions(["dcn_int8"]), torch.inference_mode():
             plain_feats = engine.model.img_neck(engine.model.img_backbone(image))
         errs = [rel_errors(a, b) for a, b in zip(feats, plain_feats)]
         res_backbone = {"neck_rel_err_dcn_int8_kernel_vs_plain": errs}
-        log(f"{name}: FPN levels with the int8 im2col on its kernel against its plain version: "
+        log(f"{name}: FPN levels with the int8-table DCN on its kernel against its plain version: "
             + ", ".join(f"max {e['max']:.3e} rms {e['rms']:.3e}" for e in errs))
     del feats, plain_feats, image
     d_plain, d_sim = mean_coords_diff(outs, plain), mean_coords_diff(outs, sim)
@@ -939,7 +1030,9 @@ def phase_model(make_cfg, card, per_frame_want, latency_frames, f32_tols=None):
     torch.cuda.synchronize()
     launches = dict(zip(COUNT_NAMES, launch_counts()))
     log(f"{name} main path: cumulative launches after each frame {COUNT_NAMES} {per_frame}")
-    per_frame_want = tuple(per_frame_want) + (0,) * 6  # no int8 kernel, no probe on this path
+    msda, flash, dcn = per_frame_want
+    # float32: the DCN op takes the im2col route (the dtype rule of ops/dcn.py)
+    per_frame_want = counts_of(msda=msda, flash_attn=flash, dcn_im2col=dcn)
     if per_frame != [tuple(n * i for n in per_frame_want) for i in (1, 2, 3)]:
         raise AssertionError(f"{name}: expected {per_frame_want} launches per frame, "
                              f"got {per_frame}")
@@ -972,10 +1065,20 @@ def phase_model(make_cfg, card, per_frame_want, latency_frames, f32_tols=None):
     # held in the rms norm: the kernel path agrees with the plain path, and
     # strays from the float32 result no further than the plain path does
     engine16 = BEVFormerEngine(make_cfg(dtype="bfloat16"), seed=0)
+    reset_launch_counts()
     got16 = run_frames(engine16, frames)
+    launches16 = dict(zip(COUNT_NAMES, launch_counts()))
+    # bfloat16: the fused DCN kernel and its gather table, no im2col
+    want16 = counts_of(msda=msda, flash_attn=flash, dcn=dcn, dcn_table=dcn)
+    if launch_counts() != tuple(3 * n for n in want16):
+        raise AssertionError(f"{name} bf16: expected {want16} launches per frame over 3 frames, "
+                             f"got {launches16}")
+    log(f"{name} bf16 main path: launches over 3 frames {launches16}")
     plain16 = run_plain(engine16, frames)
+    torch.cuda.reset_peak_memory_stats()
     lat16 = frame_latency(engine16, frames, latency_frames)
     latency16 = float(np.median(lat16))
+    peak16_mb = torch.cuda.max_memory_allocated() / 1e6
     err16 = compare_frames(got16, plain16, f"{name} bf16 kernel vs plain", rms_tol=BF16_RMS_TOL)
     drift_k = compare_frames(got16, plain, f"{name} bf16 kernel vs f32 plain")["rms"]
     drift_p = compare_frames(plain16, plain, f"{name} bf16 plain vs f32 plain")["rms"]
@@ -983,78 +1086,115 @@ def phase_model(make_cfg, card, per_frame_want, latency_frames, f32_tols=None):
         raise AssertionError(
             f"{name}: bf16 kernel path drifts {drift_k} from float32, plain path {drift_p}")
     log(f"{name} bf16 frame latency: median {latency16:.3f} ms over {len(lat16)} frames "
-        f"(min {min(lat16):.3f}, max {max(lat16):.3f}) on {card}")
+        f"(min {min(lat16):.3f}, max {max(lat16):.3f}), peak device memory {peak16_mb:.0f} MB, "
+        f"on {card}")
     del engine16
     torch.cuda.empty_cache()
-    return dict(launches=launches, frames=len(frames), rel_err_f32=err32, rel_err_bf16=err16,
+    return dict(launches=launches, launches_bf16=launches16, frames=len(frames),
+                rel_err_f32=err32, rel_err_bf16=err16,
                 bf16_drift_kernel=drift_k, bf16_drift_plain=drift_p,
                 latency_ms_median=latency, latency_ms=lat, latency_ms_median_bf16=latency16,
-                latency_ms_bf16=lat16,
-                peak_memory_mb=peak_mb)
+                latency_ms_bf16=lat16, peak_memory_mb=peak_mb, peak_memory_mb_bf16=peak16_mb)
 
 
 def phase_small(card):
-    """One BEVFormer-small frame at full width on the kernel path."""
-    cfg = bevformer_small()
-    frames = synthetic_frames(cfg, np.random.default_rng(0), ("scene-A",))
-    check_rig(cfg, frames)
-    engine = BEVFormerEngine(cfg, seed=0)
-    run_frames(engine, frames)  # warm-up
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    (bev, classes, coords), = run_frames(engine, frames)
-    ms = (time.perf_counter() - t0) * 1e3
-    counts = launch_counts()
-    log(f"small main path: launches (msda, flash, dcn) {counts}; frame {ms:.3f} ms on {card}")
-    if counts != (12, 6, 26) + (0,) * 6:
-        raise AssertionError(f"small: expected (12, 6, 26) and no other launches per frame, "
-                             f"got {counts}")
-    shapes = tuple(tuple(t.shape) for t in (bev, classes, coords))
-    if shapes != ((cfg.bev_h * cfg.bev_w, 1, cfg.embed_dims), (6, 1, 900, 10), (6, 1, 900, 10)):
-        raise AssertionError(f"small output shapes {shapes}")
-    for what, t in (("bev_embed", bev), ("classes", classes), ("coords", coords)):
-        if not torch.isfinite(t).all():
-            raise AssertionError(f"small {what}: non-finite values")
-    return dict(launches=dict(zip(COUNT_NAMES, counts)), frame_ms=ms)
+    """One BEVFormer-small frame at full width on the kernel path, float32
+    (the DCN op on its im2col route) and bfloat16 (the fused DCN kernel)."""
+    res = {}
+    for dtype, dcn_counts in (("float32", dict(dcn_im2col=26)),
+                              ("bfloat16", dict(dcn=26, dcn_table=26))):
+        cfg = bevformer_small(dtype=dtype)
+        frames = synthetic_frames(cfg, np.random.default_rng(0), ("scene-A",))
+        check_rig(cfg, frames)
+        engine = BEVFormerEngine(cfg, seed=0)
+        run_frames(engine, frames)  # warm-up
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (bev, classes, coords), = run_frames(engine, frames)
+        ms = (time.perf_counter() - t0) * 1e3
+        peak_mb = torch.cuda.max_memory_allocated() / 1e6
+        counts = launch_counts()
+        want = counts_of(msda=12, flash_attn=6, **dcn_counts)
+        log(f"small {dtype} main path: launches {dict(zip(COUNT_NAMES, counts))}; frame "
+            f"{ms:.3f} ms, peak device memory {peak_mb:.0f} MB on {card}")
+        if counts != want:
+            raise AssertionError(f"small {dtype}: expected {want} launches per frame, got {counts}")
+        shapes = tuple(tuple(t.shape) for t in (bev, classes, coords))
+        if shapes != ((cfg.bev_h * cfg.bev_w, 1, cfg.embed_dims), (6, 1, 900, 10),
+                      (6, 1, 900, 10)):
+            raise AssertionError(f"small output shapes {shapes}")
+        for what, t in (("bev_embed", bev), ("classes", classes), ("coords", coords)):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"small {dtype} {what}: non-finite values")
+        res[dtype] = dict(launches=dict(zip(COUNT_NAMES, counts)), frame_ms=ms,
+                          peak_memory_mb=peak_mb)
+        del engine
+        torch.cuda.empty_cache()
+    return res
 
 
-def frame_sums(rows, frame, library, extra=()):
-    """The float32 launches of one `frame` (tiny, base) at the main path's
+def frame_sums(rows, frame, library, extra=(), dtype="float32", key="launches_per_frame"):
+    """The `dtype` launches of one `frame` (tiny, base) at the main path's
     shapes, summed: ms per frame.  `extra` names further row keys to sum."""
-    main = [r for r in rows if r["dtype"] == "float32" and r["launches_per_frame"].get(frame)]
+    main = [r for r in rows if r["dtype"] == dtype and r[key].get(frame)]
 
-    def tot(key):
-        return float(sum(r[key] * r["launches_per_frame"][frame] for r in main))
+    def tot(k):
+        return float(sum(r[k] * r[key][frame] for r in main))
 
     return {
-        "launches_per_frame": sum(r["launches_per_frame"][frame] for r in main),
+        "launches_per_frame": sum(r[key][frame] for r in main),
         "max_abs_err": max(r["max_abs_err"] for r in main),
         "ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
         "bound_us": tot("bound_ms") * 1e3,
-        "bound_by": max(main, key=lambda r: r["bound_ms"] * r["launches_per_frame"][frame])[
-            "bound_by"],
+        "bound_by": max(main, key=lambda r: r["bound_ms"] * r[key][frame])["bound_by"],
         "library_ms": tot("library_ms") if library else None,
-        **{key: tot(key) for key in extra},
+        **{k: tot(k) for k in extra},
     }
 
 
 def kernel_entry(name, source, replaces, rows, library, frame, launches, also=None, extra=(),
-                 note=""):
+                 note="", dtype="float32"):
     """One entry of the kernels line.  Its numbers are sums over one
-    `frame`'s float32 launches; `launches` is the count of that model's
+    `frame`'s `dtype` launches; `launches` is the count of that model's
     main-path run.  `also` = (frame, launches) adds another model's sums and
     count under keys prefixed with its name; `extra` row keys are summed
     too and `note` is appended to the entry's `per`."""
     entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-             "launches": launches, **frame_sums(rows, frame, library, extra),
-             "per": f"one {frame} frame: the sum over its float32 launches at the main "
+             "launches": launches, **frame_sums(rows, frame, library, extra, dtype),
+             "per": f"one {frame} frame: the sum over its {dtype} launches at the main "
                     f"path's shapes{note}"}
     if also:
         other, count = also
         entry[f"{other}_launches"] = count
-        entry.update({f"{other}_{k}": v for k, v in frame_sums(rows, other, library).items()})
+        entry.update({f"{other}_{k}": v
+                      for k, v in frame_sums(rows, other, library, (), dtype).items()})
     entry["shapes"] = rows
     return entry
+
+
+def fused_rows(rows, int8):
+    """The fused kernel's rows of the DCN phases in the kernels line's terms:
+    `ms` the whole op (the gather table and the fused kernel), `bound_ms` the
+    op's bound, `plain_ms` the plain op, `route_ms` the parent's route
+    (im2col kernel, then the product), `conv2d_ms` cuDNN's `F.conv2d` of the
+    same shape where it was timed (a yardstick: not the same function, so
+    `library_ms` is null); only the dtypes that run the fused kernel
+    (bfloat16 for the float map, both for the int8 table)."""
+    return [dict(r, ms=r["op_ms"], bound_ms=r["op_bound_ms"], bound_by=r["op_bound_by"],
+                 plain_ms=r["op_plain_ms"], max_abs_err=r["op_max_abs_err"], library_ms=None,
+                 conv2d_ms=r.get("op_library_ms"), im2col_ms=r["ms"],
+                 im2col_bound_ms=r["bound_ms"])
+            for r in rows if int8 or r["dtype"] == "bfloat16"]
+
+
+def table_rows(rows):
+    """The gather table kernel's rows: the kernels line's keys from the
+    `table_*` measurements of the DCN phases."""
+    return [dict(r, ms=r["table_ms"], plain_ms=r["table_plain_ms"],
+                 bound_ms=r["table_bound_ms"], bound_by=r["table_bound_by"],
+                 max_abs_err=r["table_max_abs_err"], library_ms=None)
+            for r in rows if r.get("table_ms") is not None]
 
 
 def main(argv=None):
@@ -1133,11 +1273,25 @@ def main(argv=None):
         kernel_entry("dcn_im2col", "bevformer_tensorrt_tpu_torch/csrc/dcn.cu",
                      "bevformer_tensorrt_tpu/ops/pallas/msda_gather.py:247",
                      res["dcn"], False, "base", base["dcn_im2col"],
+                     also=("small", res["small"]["float32"]["launches"]["dcn_im2col"]),
                      extra=("op_ms", "op_plain_ms", "op_library_ms"),
-                     note="; no library call computes a deformable im2col, so library_ms is "
-                          "null; op_ms is the whole op (im2col, then the product with the "
-                          "weight) and op_library_ms cuDNN's ordinary F.conv2d of the same "
-                          "shape, a yardstick for the op only"),
+                     note="; the float32 map's route (the dtype rule of ops/dcn.py); no library "
+                          "call computes a deformable im2col, so library_ms is null; op_ms is "
+                          "the whole op (im2col, then the product with the weight) and "
+                          "op_library_ms cuDNN's ordinary F.conv2d of the same shape, a "
+                          "yardstick for the op only"),
+        kernel_entry("dcn_fused", "bevformer_tensorrt_tpu_torch/csrc/dcn_fused.cu",
+                     "bevformer_tensorrt_tpu/ops/pallas/msda_gather.py:247 (im2col mode, with "
+                     "the product of bevformer_tensorrt_tpu/ops/dcn.py:231)",
+                     fused_rows(res["dcn"], False), False, "base",
+                     res["base"]["launches_bf16"]["dcn"],
+                     also=("small", res["small"]["bfloat16"]["launches"]["dcn"]),
+                     extra=("route_ms", "conv2d_ms", "table_ms"), dtype="bfloat16",
+                     note="; the whole op: the gather table, then the fused kernel; route_ms "
+                          "the parent's route (im2col kernel, then the product) and conv2d_ms "
+                          "cuDNN's ordinary F.conv2d of the same shape, a yardstick (no library "
+                          "call computes the op, so library_ms is null); launches over the "
+                          "three bfloat16 frames"),
     ]
     tiny8, base8 = res["tiny_int8"], res["base_int8"]
     gemm = {"name": "int8_gemm", "route": "cuda",
@@ -1171,16 +1325,38 @@ def main(argv=None):
     ]
     small8, probes = res["small_int8"], res["probes"]
     kernels.append(kernel_entry(
+        "dcn_fused_int8", "bevformer_tensorrt_tpu_torch/csrc/dcn_fused.cu",
+        "bevformer_tensorrt_tpu/ops/pallas/msda_gather.py:247 (packed='int8' from "
+        "bevformer_tensorrt_tpu/ops/dcn.py:215-230)",
+        fused_rows(res["dcn_int8"], True), False, "base", base8["launches"]["dcn_int8"],
+        also=("small", small8["launches"]["dcn_int8"]), extra=("route_ms", "table_ms"),
+        note="; the whole op under quant='int8': the gather table's int8 codes, then the fused "
+             "kernel (FFMA product for float32 activations); route_ms the parent's route (the "
+             "table by plain passes, the int8 im2col kernel, the product); no library call "
+             "computes the op"))
+    kernels.append(kernel_entry(
+        "dcn_gather_table", "bevformer_tensorrt_tpu_torch/csrc/dcn_fused.cu",
+        "bevformer_tensorrt_tpu/ops/dcn.py:146-158 (the int8 table's codes, and the "
+        "channels-last layout of the tables the TPU kernel gathers from)",
+        table_rows(res["dcn_int8"]), False, "base", base8["launches"]["dcn_table"],
+        also=("small", small8["launches"]["dcn_table"]),
+        note="; the int8 codes from the float32 map with its scale; plain_ms the plain "
+             "quantization and transposition; the bfloat16 frames' float tables are rows of "
+             "the shapes list (dtype bfloat16, codes false)"))
+    kernels[-1]["shapes"] = table_rows(res["dcn_int8"]) + [
+        dict(r, codes=False) for r in table_rows(res["dcn"])]
+    yardstick = kernel_entry(
         "dcn_im2col_int8", "bevformer_tensorrt_tpu_torch/csrc/dcn.cu",
         "bevformer_tensorrt_tpu/ops/pallas/msda_gather.py:247 (packed='int8' from "
         "bevformer_tensorrt_tpu/ops/dcn.py:347)",
         res["dcn_int8"], False, "base", base8["launches"]["dcn_im2col_int8"],
         also=("small", small8["launches"]["dcn_im2col_int8"]),
-        extra=("quantize_ms", "wrapper_ms", "float_kernel_ms", "op_ms", "wrapper_bound_ms"),
-        note="; ms is the kernel alone on a table made ahead, quantize_ms the plain passes "
-             "that make the table, wrapper_ms both, float_kernel_ms the floating-point kernel "
-             "at the same shape, op_ms the whole op under quant='int8'; no library call "
-             "computes a deformable im2col"))
+        extra=("table_ms", "op_ms", "route_ms"),
+        note="; the int8 table's old route, off every model path since the fused kernel (a "
+             "yardstick: launches 0); ms is the kernel alone on a table made ahead; no library "
+             "call computes a deformable im2col")
+    yardstick["main_path"] = False
+    kernels.append(yardstick)
     for name, replaces in (
             ("gather_rows", "tools/kernel_bench.py:96 (also tools/gather_bench.py:90, :107 and "
                             "tools/kernel_bench3.py:77 variant F)"),
@@ -1203,7 +1379,8 @@ def main(argv=None):
                    "tool",
             "shapes": rows})
     for k in kernels:
-        if k["launches"] < 1 or k.get("base_launches", 1) < 1 or k.get("small_launches", 1) < 1:
+        if k.get("main_path", True) and (k["launches"] < 1 or k.get("base_launches", 1) < 1
+                                         or k.get("small_launches", 1) < 1):
             raise AssertionError(f"kernel {k['name']} was not launched on the main path")
     res["kernels"] = kernels
     if args.out:

@@ -4,6 +4,7 @@ fall back to the CPU, and the decode matches the JAX package's."""
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -100,7 +101,7 @@ def test_new_modules_take_the_plain_path_on_the_cpu(rng):
     )
     from bevformer_tensorrt_tpu_torch.tools import kernel_bench
 
-    assert len(_cuda.KERNELS) == 6 and len(ops.KERNEL_WRAPPERS) == 9
+    assert len(_cuda.KERNELS) == 7 and len(ops.KERNEL_WRAPPERS) == 12
     ops.reset_launch_counts()
     table = torch.from_numpy(rng.standard_normal((2, 30, 32)).astype(np.float32))
     idx = torch.from_numpy(rng.integers(0, 30, (2, 6, 4, 4)).astype(np.int32))
@@ -113,7 +114,7 @@ def test_new_modules_take_the_plain_path_on_the_cpu(rng):
     sd = load_bevformer_checkpoint(cfg, upstream_layout(cfg, model.state_dict()))
     assert all(t.device.type == "cpu" for t in sd.values())
     assert kernel_bench.main(["--device", "cpu", "--parts", "split"]) == 0
-    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [0] * 9
+    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [0] * 12
     assert not _cuda._libs and not list(_cuda.BUILD.glob("*.so"))
 
 
@@ -240,9 +241,25 @@ def test_seeded_init_is_deterministic():
      "convolution"),
     ("void (anonymous namespace)::msda_kernel<float, 1>(float const*)", "msda kernel"),
     ("void (anonymous namespace)::dcn_im2col_kernel<float, float>(float const*, float const*)",
-     "dcn kernel"),
+     "dcn im2col kernel"),
     ("void (anonymous namespace)::dcn_im2col_kernel<signed char, __nv_bfloat16>(signed char const*)",
-     "dcn int8 kernel"),
+     "dcn im2col int8 kernel"),
+    ("void (anonymous namespace)::dcn_wgmma_kernel<2, 2, __nv_bfloat16>(CUtensorMap_st, "
+     "__nv_bfloat16 const*, float const*)", "dcn kernel"),
+    ("void (anonymous namespace)::dcn_ffma_kernel<2, float>(CUtensorMap_st, float const*)",
+     "dcn kernel"),
+    ("void (anonymous namespace)::dcn_wgmma_kernel<1, 2, signed char>(CUtensorMap_st, "
+     "signed char const*, float const*)", "dcn int8 kernel"),
+    ("void (anonymous namespace)::dcn_ffma_kernel<2, signed char>(CUtensorMap_st, signed char "
+     "const*, float const*)", "dcn int8 kernel"),
+    ("void (anonymous namespace)::dcn_table_kernel<float, signed char>(float const*, float "
+     "const*, signed char*, int, int, int, int)", "dcn table kernel"),
+    ("void (anonymous namespace)::dcn_amax_kernel<__nv_bfloat16>(__nv_bfloat16 const*, float*, "
+     "int, int, int)", "dcn table kernel"),
+    ("void (anonymous namespace)::dcn_ffma_kernel<signed char, 128, 0>(CUtensorMap_st, "
+     "signed char const*, float const*)", "dcn int8 kernel"),
+    ("void (anonymous namespace)::dcn_wgmma_kernel<2, __nv_bfloat16, 0>(CUtensorMap_st, "
+     "__nv_bfloat16 const*, float const*)", "dcn kernel"),
     ("void (anonymous namespace)::int8_gemm_kernel<float>(signed char const*)",
      "int8 gemm kernel"),
     ("void (anonymous namespace)::msda_kernel<signed char, float, 1>(signed char const*)",
@@ -280,27 +297,29 @@ def test_plain_versions_swap_and_restore():
     wrappers = (msda.multi_scale_deformable_attn, attention.flash_attention,
                 dcn.modulated_deform_conv2d)
     six = [getattr(mod, name) for mod, name, _ in WRAPPERS.values()]
-    # every counted wrapper of the models can be swapped, the DCN op at the
-    # im2col that holds its kernel; the last two counted wrappers are the
-    # probes of the kernel bench tool, which no model calls
+    # every counted wrapper of the models can be swapped (the DCN op's gather
+    # table with the op that makes it); the next two
+    # counted wrappers are the probes of the kernel bench tool and the last
+    # two the im2col kernels of the DCN op's old route, which no model calls
     counted = list(ops.KERNEL_WRAPPERS[:7])
     assert counted[2] is dcn.modulated_deform_conv2d
-    counted[2] = dcn.deform_im2col
-    assert six == counted and len(ops.KERNEL_WRAPPERS) == 9
-    assert ops.KERNEL_WRAPPERS[7:] == (ops.gather_rows, ops.gather_blend)
+    assert counted[6] is dcn.modulated_deform_conv2d_int8
+    assert ops.KERNEL_WRAPPERS[7] is dcn.dcn_gather_table
+    assert six == counted and len(ops.KERNEL_WRAPPERS) == 12
+    assert ops.KERNEL_WRAPPERS[8:] == (ops.gather_rows, ops.gather_blend, dcn.deform_im2col,
+                                       dcn.deform_im2col_int8)
     assert _cuda.KERNELS == ("msda", "flash_attn", "dcn", "int8_gemm", "flash_attn_int8",
-                             "gather_probe")
+                             "gather_probe", "dcn_fused")
     assert all((_cuda.CSRC / f"{name}.cu").exists() for name in _cuda.KERNELS)
     with plain_versions():
-        assert dcn.deform_im2col_int8 is dcn.deform_im2col_int8_plain
+        assert dcn.modulated_deform_conv2d_int8 is dcn.modulated_deform_conv2d_int8_plain
         assert int8_matmul.int8_matmul is int8_matmul.int8_matmul_plain
         assert msda.multi_scale_deformable_attn_int8 is msda.multi_scale_deformable_attn_int8_plain
         assert attention.flash_attention_int8 is attention.flash_attention_int8_plain
     assert [getattr(mod, name) for mod, name, _ in WRAPPERS.values()] == six
     with plain_versions(["dcn"]):
-        assert dcn.deform_im2col is dcn.deform_im2col_plain
-        assert dcn.deform_im2col_int8 is not dcn.deform_im2col_int8_plain
-        assert dcn.modulated_deform_conv2d is wrappers[2]
+        assert dcn.modulated_deform_conv2d is not wrappers[2]
+        assert dcn.modulated_deform_conv2d_int8 is not dcn.modulated_deform_conv2d_int8_plain
         assert msda.multi_scale_deformable_attn is wrappers[0]
     with pytest.raises(RuntimeError):
         with plain_versions():
@@ -314,3 +333,26 @@ def test_plain_versions_swap_and_restore():
     assert err["bev_embed"]["max"] == pytest.approx(0.5)
     assert [e["max"] for e in err["classes"]] == [0.0, 0.0]
     assert [e["max"] for e in err["coords"]] == pytest.approx([0.0, 2.0])
+
+
+def test_library_name_hashes_the_sources_it_includes(tmp_path, monkeypatch):
+    """A source that includes another source (the bench's `dcn_fused_split.cu`
+    includes `dcn_fused.cu`) is rebuilt when either changes; the shared
+    headers count for every source.  Nothing is built."""
+    from bevformer_tensorrt_tpu_torch.ops import _cuda
+
+    (tmp_path / "base.cu").write_text("int f() { return 1; }\n")
+    (tmp_path / "probe.cu").write_text('#define PROBE 1\n#include "base.cu"\n')
+    (tmp_path / "other.cu").write_text("int g() { return 2; }\n")
+    monkeypatch.setattr(_cuda, "CSRC", tmp_path)
+    monkeypatch.setattr(_cuda, "BUILD", tmp_path / "build")
+    before = {name: _cuda.library_path(name) for name in ("probe", "other")}
+    (tmp_path / "base.cu").write_text("int f() { return 3; }\n")
+    assert _cuda.library_path("probe") != before["probe"]
+    assert _cuda.library_path("other") == before["other"]
+    (tmp_path / "shared.cuh").write_text("#pragma once\n")
+    assert _cuda.library_path("other") != before["other"]
+    assert not (tmp_path / "build").exists()
+    real = Path(_cuda.__file__).resolve().parent.parent / "csrc"
+    assert '#include "dcn_fused.cu"' in (real / "dcn_fused_split.cu").read_text()
+    assert "dcn_fused_split" not in _cuda.KERNELS  # built on demand by the bench alone

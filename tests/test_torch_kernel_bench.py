@@ -161,7 +161,7 @@ def test_kernel_bench_tool_rehearses_on_the_cpu(tmp_path, capsys, monkeypatch):
     out = tmp_path / "bench.json"
     ops.reset_launch_counts()
     assert kernel_bench.main(["--device", "cpu", "--out", str(out)]) == 0
-    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [0] * 9 and not _cuda._libs
+    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [0] * 12 and not _cuda._libs
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0].startswith("cpu")
     rows = [json.loads(line) for line in lines[1:]]
@@ -169,7 +169,7 @@ def test_kernel_bench_tool_rehearses_on_the_cpu(tmp_path, capsys, monkeypatch):
     assert {r["part"] for r in rows} == {"probes", "production", "split"}
     assert {r["kernel"] for r in rows} == {
         "gather_rows", "gather_blend", "msda", "msda_int8", "flash_attn", "flash_int8",
-        "dcn_im2col", "dcn_im2col_int8", "int8_gemm"}
+        "dcn_im2col", "dcn_im2col_int8", "dcn_op", "dcn_op_int8", "int8_gemm"}
     for r in rows:
         assert r["device"] == "cpu" and r["cpu_ms"] > 0
         assert "ms" not in r and "bound_ms" not in r and "library_ms" not in r
@@ -193,3 +193,19 @@ def test_kernel_bench_tool_rehearses_on_the_cpu(tmp_path, capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):  # no card: raise, do not run on the CPU
         kernel_bench.main([])
+
+
+def test_kernel_bench_dcn_split_rehearses_on_the_cpu(capsys):
+    """`--parts dcn_split` on the CPU: one row per operand kind at the toy
+    shape, the op's plain version under its host time, nothing built."""
+    from bevformer_tensorrt_tpu_torch.ops import _cuda
+
+    ops.reset_launch_counts()
+    assert kernel_bench.main(["--device", "cpu", "--parts", "dcn_split"]) == 0
+    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [0] * 12 and not _cuda._libs
+    lines = capsys.readouterr().out.strip().splitlines()
+    rows = [json.loads(line) for line in lines[1:]]
+    assert [(r["part"], r["kernel"], r["kind"]) for r in rows] == [
+        ("dcn_split", "dcn_op", kind) for kind in kernel_bench.DCN_KINDS]
+    assert all(r["cpu_ms"] > 0 and "ms" not in r for r in rows)
+    assert {r["dtype"] for r in rows} == {"bfloat16", "float32"}

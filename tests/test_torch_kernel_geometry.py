@@ -1,9 +1,12 @@
-"""The Python around the port's int8 product and MSDA kernels, on the CPU:
-the rule that picks the product's tile configuration, the TMA tensor-map
-arguments and their checks, the MSDA launch geometry, and the int8 weight
-matrix that the quantized layers keep.  Every configuration and geometry
-must fit in the shared memory of one Hopper block (227 KB) at every shape
-of `tools/kernel_cases.py`."""
+"""The Python around the port's int8 product, MSDA and fused DCN kernels, on
+the CPU: the rule that picks the product's tile configuration, the TMA
+tensor-map arguments and their checks, the MSDA launch geometry (several
+phase-1 passes and channel chunks where one block cannot take a problem;
+every shape of one pass and one chunk exactly as before), the fused DCN
+kernel's tile configuration and its walk over K, and the weight matrices
+that the quantized layers and the DCN block keep.  Every configuration and
+geometry must fit in the shared memory of one Hopper block (227 KB) at
+every shape of `tools/kernel_cases.py`."""
 import importlib
 
 import numpy as np
@@ -76,31 +79,81 @@ def test_tensor_map_arguments_refuse_what_tma_does_not_take(rows, K, ptr, box, m
 
 
 def msda_specs():
-    specs = {n: (s[0], s[1], s[2], s[3], 32) for n, s in kc.MSDA_SHAPES.items()}
-    specs.update({n: (s[0], s[1], s[2], s[3], s[5]) for n, s in kc.MSDA_EDGE_SHAPES.items()})
+    """name: (bs, shapes, nq, P, ch, heads) of every MSDA shape of the cases."""
+    specs = {n: (s[0], s[1], s[2], s[3], 32, 8) for n, s in kc.MSDA_SHAPES.items()}
+    specs.update({n: (s[0], s[1], s[2], s[3], s[5], s[6])
+                  for n, s in kc.MSDA_EDGE_SHAPES.items()})
     return specs
+
+
+def one_pass_msda_geometry(bs, nq, heads, ch, L, P, value_esz, value_ptr=0):
+    """The launch geometry as it was before the kernel took any L*P, ch and
+    heads x taps (one pass, one chunk): the shapes it took must keep it."""
+    LP = L * P
+    lpp = 1 << (LP - 1).bit_length()
+    if lpp > 256 or not 1 <= ch <= 128:
+        return None
+    qt = max(1, min(nq, 1024 // (heads * lpp), -(-bs * nq // (4 * 132))))
+    smem = 8 * qt * heads * (4 * lpp + 2)
+    if smem > 232448:
+        return None
+    row = ch * value_esz
+    vw = 16
+    while row % vw or value_ptr % vw:
+        vw //= 2
+    lanes = row // vw
+    rpw = 1
+    while 2 * rpw * lanes <= 32:
+        rpw *= 2
+    seg = 1
+    while seg < rpw and rpw // seg * 8 > qt * heads:
+        seg *= 2
+    return dict(qt=qt, threads=256, lpp=lpp, vw=vw, seg=seg, smem=smem, lanes_per_row=lanes,
+                rows_per_warp=rpw, blocks=bs * -(-nq // qt))
 
 
 @pytest.mark.parametrize("esz", [4, 2, 1])
 @pytest.mark.parametrize("name", sorted(msda_specs()))
 def test_msda_geometry_fits_every_shape(name, esz):
-    bs, shapes, nq, P, ch = msda_specs()[name]
-    L, heads = len(shapes), 8
+    bs, shapes, nq, P, ch, heads = msda_specs()[name]
+    L = len(shapes)
     geo = msda_ops.msda_launch_geometry(bs, nq, heads, ch, L, P, esz, 0)
-    lpp, qt = geo["lpp"], geo["qt"]
-    assert L * P <= lpp < 2 * L * P and lpp & (lpp - 1) == 0
-    assert geo["threads"] == 256 and geo["threads"] % lpp == 0
+    lpp, qt, passes, cch = geo["lpp"], geo["qt"], geo["passes"], geo["cch"]
+    assert lpp & (lpp - 1) == 0 and lpp <= msda_ops.MSDA_THREADS
+    assert lpp * passes >= L * P > lpp * (passes - 1)  # the passes take every tap once
+    assert passes == 1 or L * P > msda_ops.MSDA_THREADS or qt == 1
+    assert geo["threads"] == 256 and geo["threads"] % min(lpp, 256) == 0
     assert 1 <= qt <= nq and (qt * heads * lpp <= msda_ops.MSDA_TAPS_PER_BLOCK or qt == 1)
-    assert geo["smem"] == 8 * qt * heads * (4 * lpp + 2) <= msda_ops.SMEM_LIMIT
-    assert geo["vw"] == 16 and geo["lanes_per_row"] == ch * esz // 16 <= 32
-    assert geo["blocks"] == bs * -(-nq // qt)
-    cap = msda_ops.MSDA_TAPS_PER_BLOCK // (heads * lpp)  # spread over blocks where it can
-    assert qt == max(1, min(nq, cap, -(-bs * nq // msda_ops.MSDA_MIN_BLOCKS)))
+    multi = qt * heads * (8 + 4 * cch) if passes > 1 else 0
+    assert geo["smem"] == 8 * qt * heads * (4 * lpp + 2) + multi <= msda_ops.SMEM_LIMIT
+    assert cch == min(ch, msda_ops.MSDA_MAX_CH) and geo["chunks"] == -(-ch // cch)
+    assert geo["vw"] == 16 and geo["lanes_per_row"] == cch * esz // 16 <= 32
+    assert geo["blocks"] == bs * -(-nq // qt) * geo["chunks"]
+    if passes == 1:
+        cap = msda_ops.MSDA_TAPS_PER_BLOCK // (heads * lpp)  # spread over blocks where it can
+        assert qt == max(1, min(nq, cap, -(-bs * nq // msda_ops.MSDA_MIN_BLOCKS)))
     rpw, seg, warps = geo["rows_per_warp"], geo["seg"], 256 // 32
     assert rpw * geo["lanes_per_row"] <= 32 < 2 * rpw * geo["lanes_per_row"]
     assert seg & (seg - 1) == 0 and 1 <= seg <= rpw
     assert rpw // seg * warps <= qt * heads or seg == rpw  # every warp has an output
     assert seg == 1 or rpw // (seg // 2) * warps > qt * heads  # and no more shares than that
+
+
+@pytest.mark.parametrize("ptr", [0, 8, 4])
+@pytest.mark.parametrize("esz", [4, 2, 1])
+@pytest.mark.parametrize("name", sorted(msda_specs()))
+def test_msda_geometry_keeps_its_one_pass_launch(name, esz, ptr):
+    """Every shape that one pass and one chunk took before keeps exactly
+    the launch it had, so the models' times do not move."""
+    bs, shapes, nq, P, ch, heads = msda_specs()[name]
+    old = one_pass_msda_geometry(bs, nq, heads, ch, len(shapes), P, esz, ptr)
+    geo = msda_ops.msda_launch_geometry(bs, nq, heads, ch, len(shapes), P, esz, ptr)
+    if old is None:  # taps past a block, rows past 128 channels, heads x taps past smem
+        assert name in ("lp320", "ch256", "heads64")
+        assert geo["passes"] > 1 or geo["chunks"] > 1
+        return
+    assert {k: geo[k] for k in old} == old
+    assert (geo["passes"], geo["chunks"], geo["cch"]) == (1, 1, ch)
 
 
 def test_msda_geometry_at_base_cross_attention():
@@ -117,19 +170,34 @@ def test_msda_geometry_at_base_cross_attention():
 
 @pytest.mark.parametrize("ch,esz,ptr,vw", [
     (8, 1, 0, 8), (16, 1, 0, 16), (3, 4, 0, 4), (5, 2, 0, 2), (7, 1, 0, 1), (32, 4, 8, 8),
-    (32, 2, 4, 4), (128, 4, 0, 16),
+    (32, 2, 4, 4), (128, 4, 0, 16), (200, 4, 0, 16), (136, 2, 0, 16), (132, 2, 0, 8),
 ])
 def test_msda_geometry_narrows_the_row_loads(ch, esz, ptr, vw):
     geo = msda_ops.msda_launch_geometry(2, 50, 4, ch, 1, 4, esz, ptr)
-    assert geo["vw"] == vw and geo["lanes_per_row"] * vw == ch * esz
+    assert geo["vw"] == vw and geo["lanes_per_row"] * vw == geo["cch"] * esz
+    tail = ch - (geo["chunks"] - 1) * geo["cch"]  # the last chunk's rows take vw too
+    assert (tail * esz) % vw == 0
 
 
 @pytest.mark.parametrize("heads,ch,L,P,match", [
     (8, 32, 1, 257, "taps"), (8, 129, 1, 4, "ch"), (64, 32, 4, 64, "shared memory"),
 ])
 def test_msda_geometry_refuses_what_the_kernel_does_not_take(heads, ch, L, P, match):
-    with pytest.raises(ValueError, match=match):
-        msda_ops.msda_launch_geometry(1, 10, heads, ch, L, P, 4)
+    """The three problems one pass and one chunk refused, more than 256 taps
+    a head, more than 128 channels and heads x taps past a block's shared
+    memory, now launch in passes and chunks that fit; only an empty problem
+    is refused."""
+    geo = msda_ops.msda_launch_geometry(1, 10, heads, ch, L, P, 4)
+    assert geo["smem"] <= msda_ops.SMEM_LIMIT
+    if match == "taps":
+        assert (geo["lpp"], geo["passes"]) == (256, 2)
+    elif match == "ch":
+        assert (geo["cch"], geo["chunks"], geo["passes"]) == (128, 2, 1)
+    else:  # 64 heads x 256 taps: qt 1, then 64 taps a pass
+        assert (geo["qt"], geo["lpp"], geo["passes"]) == (1, 64, 4)
+    for empty in ((heads, 0, L, P), (heads, ch, L, 0), (0, ch, L, P)):
+        with pytest.raises(ValueError, match="empty"):
+            msda_ops.msda_launch_geometry(1, 10, empty[0], empty[1], empty[2], empty[3], 4)
 
 
 @pytest.mark.parametrize("shape", [(64, 3, 7, 7), (256, 64, 1, 1), (8, 5, 3, 3), (24, 18),

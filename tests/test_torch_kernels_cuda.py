@@ -78,6 +78,34 @@ def test_msda_kernel_matches_plain(cuda, dtype, shapes, P, ppg, ch):
     assert rel(got, want) < TOL[dtype]
 
 
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shapes,P,ppg,ch,heads", [
+    (((20, 25), (10, 13), (5, 7), (3, 4)), 80, 4, 32, 8),   # 320 taps a head: two passes
+    (((9, 11), (5, 6)), 4, 2, 256, 4),                     # ch 256: two chunks of 128
+    (((9, 11), (5, 6)), 4, 2, 200, 4),                     # a narrower last chunk
+    (((16, 20), (8, 10), (4, 5), (2, 3)), 64, 4, 32, 64),  # 64 heads x 256 taps: 4 passes
+    (((9, 11),), 300, 4, 64, 2),                           # 300 taps of one level
+])
+def test_msda_passes_and_chunks_match_plain(cuda, dtype, shapes, P, ppg, ch, heads, int8):
+    """Problems one block cannot take in one pass or one chunk: the softmax's
+    stats over all the taps first, then passes into one float32 sum; rows
+    past 128 channels on a grid axis.  Both tables."""
+    args = msda_case(shapes, 2, 97, heads, ch, P, ppg, dtype, cuda, seed=4)
+    op = msda_ops.multi_scale_deformable_attn_int8 if int8 else msda_ops.multi_scale_deformable_attn
+    plain = (msda_ops.multi_scale_deformable_attn_int8_plain if int8
+             else msda_ops.multi_scale_deformable_attn_plain)
+    geo = msda_ops.msda_launch_geometry(2, 97, heads, ch, len(shapes), P, 1 if int8 else 4)
+    assert geo["passes"] > 1 or geo["chunks"] > 1
+    before = op.launches
+    got = op(*args, shapes)
+    want = plain(*args, shapes)
+    torch.cuda.synchronize()
+    assert op.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    assert rel(got, want) < TOL[dtype]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Lq,Lk,d", [(900, 900, 32), (77, 611, 32), (130, 65, 64), (33, 40, 8)])
 def test_flash_kernel_matches_plain(cuda, dtype, Lq, Lk, d):
@@ -91,7 +119,7 @@ def test_flash_kernel_matches_plain(cuda, dtype, Lq, Lk, d):
     assert rel(got, want) < TOL[dtype]
 
 
-def dcn_case(N, Cin, H, W, Cout, stride, dg, dtype, dev, seed=3):
+def dcn_case(N, Cin, H, W, Cout, stride, dg, dtype, dev, seed=3, groups=1):
     g = torch.Generator().manual_seed(seed)
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     x = torch.randn(N, Cin, H, W, generator=g).to(dev, dtype)
@@ -99,9 +127,31 @@ def dcn_case(N, Cin, H, W, Cout, stride, dg, dtype, dev, seed=3):
     far = torch.rand(off.shape, generator=g) < 0.03  # well past the borders
     off = torch.where(far, torch.sign(off) * 200.0, off).to(dev, dtype)
     mask = torch.rand(N, dg * 9, Ho, Wo, generator=g).to(dev, dtype)
-    weight = (torch.randn(Cout, Cin, 3, 3, generator=g) / (Cin * 9) ** 0.5).to(dev)
+    weight = (torch.randn(Cout, Cin // groups, 3, 3, generator=g) / (Cin * 9) ** 0.5).to(dev)
     bias = torch.randn(Cout, generator=g).to(dev)
     return x, off, mask, weight, bias
+
+
+def dcn_counts():
+    """(float op, its im2col, int8-table op, gather table, int8 im2col) launches."""
+    return (dcn_ops.modulated_deform_conv2d.launches, dcn_ops.deform_im2col.launches,
+            dcn_ops.modulated_deform_conv2d_int8.launches, dcn_ops.dcn_gather_table.launches,
+            dcn_ops.deform_im2col_int8.launches)
+
+
+def float_op_counts(dtype, layout):
+    """What one floating-point DCN op launches: float32 the im2col route;
+    bfloat16 the fused kernel, after the gather table where the map is NCHW."""
+    if dtype == torch.float32:
+        return (0, 1, 0, 0, 0)
+    return (1, 0, 0, int(layout == "NCHW"), 0)
+
+
+def step(before, *adds):
+    out = list(before)
+    for add in adds:
+        out = [a + b for a, b in zip(out, add)]
+    return tuple(out)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -117,11 +167,11 @@ def test_dcn_kernel_matches_plain(cuda, dtype, layout, N, Cin, H, W, Cout, strid
     if layout == "NHWC":
         x, off, mask = (t.permute(0, 2, 3, 1).contiguous() for t in (x, off, mask))
     kw = dict(stride=stride, padding=1, dilation=1, deform_groups=dg, layout=layout)
-    before = dcn_ops.modulated_deform_conv2d.launches
+    before = dcn_counts()
     col = dcn_ops.deform_im2col(x, off, mask, (3, 3), **kw)
     got = dcn_ops.modulated_deform_conv2d(x, off, mask, weight, bias, groups=1, **kw)
     torch.cuda.synchronize()
-    assert dcn_ops.modulated_deform_conv2d.launches == before + 2
+    assert dcn_counts() == step(before, (0, 1, 0, 0, 0), float_op_counts(dtype, layout))
     want_col = dcn_ops.deform_im2col_plain(x, off, mask, (3, 3), **kw)
     want = dcn_ops.modulated_deform_conv2d_plain(x, off, mask, weight, bias, groups=1, **kw)
     assert col.dtype == dtype and col.shape == want_col.shape
@@ -130,14 +180,157 @@ def test_dcn_kernel_matches_plain(cuda, dtype, layout, N, Cin, H, W, Cout, strid
     assert rel(got, want) < TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+@pytest.mark.parametrize("N,Cin,H,W,Cout,stride,dg,groups", [
+    (2, 64, 23, 31, 48, 1, 2, 2),
+    (2, 64, 23, 31, 48, 1, 1, 2),
+    (1, 96, 17, 19, 36, 2, 2, 3),
+    (1, 32, 9, 13, 512, 1, 1, 2),   # groups of 256 outputs: the 256-row tile
+])
+def test_dcn_groups_match_plain(cuda, dtype, layout, N, Cin, H, W, Cout, stride, dg, groups):
+    """`groups` on the card (it used to be refused): against the plain op."""
+    x, off, mask, weight, bias = dcn_case(N, Cin, H, W, Cout, stride, dg, dtype, cuda,
+                                          groups=groups)
+    if layout == "NHWC":
+        x, off, mask = (t.permute(0, 2, 3, 1).contiguous() for t in (x, off, mask))
+    kw = dict(stride=stride, padding=1, dilation=1, deform_groups=dg, layout=layout)
+    before = dcn_counts()
+    got = dcn_ops.modulated_deform_conv2d(x, off, mask, weight, bias, groups=groups, **kw)
+    torch.cuda.synchronize()
+    assert dcn_counts() == step(before, float_op_counts(dtype, layout))
+    want = dcn_ops.modulated_deform_conv2d_plain(x, off, mask, weight, bias, groups=groups, **kw)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert rel(got, want) < TOL[dtype]
+
+
+FUSED_CASES = [(torch.bfloat16, False), (torch.bfloat16, True), (torch.float32, True)]
+
+
+@pytest.mark.parametrize("dtype,int8", FUSED_CASES)
+@pytest.mark.parametrize("name", ["base_s3", "base_s4", "small_s3", "small_s4"])
+def test_fused_dcn_at_the_model_shapes(cuda, dtype, name, int8):
+    """The fused kernel (bfloat16 map; int8 table in both dtypes; float32
+    maps take the im2col route) at the shapes of base and small, offsets
+    past every border, the kept weight matrix."""
+    from bevformer_tensorrt_tpu_torch.tools import kernel_cases as kc
+    spec = kc.DCN_SHAPES[name]
+    x, off, mask, weight, geo = kc.dcn_inputs(spec, dtype, torch.Generator().manual_seed(7), cuda)
+    wmat = dcn_ops.dcn_weight_matrix(weight, dtype)
+    quant = "int8" if int8 else False
+    got = dcn_ops.modulated_deform_conv2d(x, off, mask, weight, None, quant=quant, wmat=wmat,
+                                          **geo)
+    want = dcn_ops.modulated_deform_conv2d_plain(x, off, mask, weight, None, quant=quant, **geo)
+    torch.cuda.synchronize()
+    assert rel(got, want) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype,int8", FUSED_CASES)
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+def test_fused_dcn_copy_weight(cuda, dtype, layout, int8):
+    """A 0/1 weight that copies one (tap, channel) into each output: a wrong
+    swizzle or K order shows as a permutation, not as noise."""
+    N, Cin, H, W, Cout = 2, 128, 12, 17, 256
+    x, off, mask, _, _ = dcn_case(N, Cin, H, W, Cout, 1, 1, dtype, cuda, seed=8)
+    w = torch.zeros(Cout, Cin, 3, 3)
+    for o in range(Cout):
+        w[o, (o * 7) % Cin, o % 3, (o // 3) % 3] = 1.0
+    w = w.to(cuda)
+    if layout == "NHWC":
+        x, off, mask = (t.permute(0, 2, 3, 1).contiguous() for t in (x, off, mask))
+    quant = "int8" if int8 else False
+    kw = dict(layout=layout, quant=quant)
+    for config in [c for c, v in dcn_ops.DCN_CONFIGS.items() if v[0] == dtype]:
+        got, launch = dcn_ops.fused_launcher(x, off, mask, w, None, 1, 1, 1, 1, 1, layout, int8)
+        launch(config)
+        want = dcn_ops.modulated_deform_conv2d_plain(x, off, mask, w, None, **kw)
+        torch.cuda.synchronize()
+        # one sample a output: only its rounding to the activation dtype differs
+        assert rel(got, want) < (1e-6 if dtype == torch.float32 else 4e-3), config
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+def test_ffma_dcn_shares_tiles_between_blocks(cuda, layout, int8):
+    """Float32 activations on the FFMA kernel (the float map, which the op
+    sends down the im2col route, through `fused_launcher`), both tile
+    configurations, at a shape whose tiles outnumber the blocks an H100
+    holds: under the stream-K schedule a tile two blocks split is finished
+    by the second from the two float32 shares in the workspace.  Bias on (in
+    the head share only): the plain op to 1e-5, the same bits from a second
+    launch (head + tail, whichever arrives first), and the arrival counts
+    left at zero."""
+    x, off, mask, w, b = dcn_case(8, 64, 46, 50, 256, 1, 1, torch.float32, cuda, seed=11)
+    if layout == "NHWC":
+        x, off, mask = (t.permute(0, 2, 3, 1).contiguous() for t in (x, off, mask))
+    quant = "int8" if int8 else False
+    want = dcn_ops.modulated_deform_conv2d_plain(x, off, mask, w, b, layout=layout, quant=quant)
+    for config in ("f32_128x128", "f32_128x64"):
+        got, launch = dcn_ops.fused_launcher(x, off, mask, w, b, 1, 1, 1, 1, 1, layout, int8)
+        launch(config)
+        first = got.clone()
+        launch(config)
+        torch.cuda.synchronize()
+        assert rel(got, want) < TOL[torch.float32], config
+        assert torch.equal(got, first), config
+        assert not dcn_ops._stream_k_counts[x.device].any()
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+def test_wgmma_dcn_shares_tiles_between_blocks(cuda, layout, int8):
+    """bfloat16 activations on the wgmma kernel, both tile configurations,
+    at a shape whose tiles outnumber the blocks an H100 holds: under the
+    stream-K schedule a tile two blocks split is finished by the second from
+    the two float32 shares in the workspace.  Bias on (in the head share
+    only): the plain op to 1e-2, the same bits from a second launch, and the
+    arrival counts left at zero."""
+    x, off, mask, w, b = dcn_case(8, 64, 46, 50, 256, 1, 1, torch.bfloat16, cuda, seed=12)
+    if layout == "NHWC":
+        x, off, mask = (t.permute(0, 2, 3, 1).contiguous() for t in (x, off, mask))
+    quant = "int8" if int8 else False
+    want = dcn_ops.modulated_deform_conv2d_plain(x, off, mask, w, b, layout=layout, quant=quant)
+    for config in ("bf16_256x128", "bf16_128x128"):
+        got, launch = dcn_ops.fused_launcher(x, off, mask, w, b, 1, 1, 1, 1, 1, layout, int8)
+        launch(config)
+        first = got.clone()
+        launch(config)
+        torch.cuda.synchronize()
+        assert rel(got, want) < TOL[torch.bfloat16], config
+        assert torch.equal(got, first), config
+        assert not dcn_ops._stream_k_counts[x.device].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+def test_gather_table_matches_plain(cuda, dtype, layout):
+    """The gather table kernel: the map with its channels last, and the int8
+    codes of `quantize_dcn_table` with its scale, bit for bit."""
+    x, _, _, _, _ = dcn_case(2, 128, 13, 21, 8, 1, 1, dtype, cuda, seed=9)
+    x[:, :32] *= 9.0
+    x[:, 96:] = 0.0
+    if layout == "NHWC":
+        x = x.permute(0, 2, 3, 1).contiguous()
+    before = dcn_ops.dcn_gather_table.launches
+    for chg in (None, 32, 64):
+        got, scale = dcn_ops.dcn_gather_table(x, layout, chg)
+        want, want_scale = dcn_ops.dcn_gather_table_plain(x, layout, chg)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert (scale is None and want_scale is None) or torch.equal(scale, want_scale)
+    # an NHWC float map is its own table: no launch
+    assert dcn_ops.dcn_gather_table.launches == before + (2 if layout == "NHWC" else 3)
+
+
 def test_dcn_kernel_dilation_and_edges(cuda):
     """Dilation 2 with two deform groups, and samples exactly on the
-    validity edges (-1, H - 1, H) of a 1x1 kernel."""
-    x, off, mask, weight, bias = dcn_case(2, 16, 11, 13, 8, 1, 2, torch.float32, cuda)
-    kw = dict(stride=1, padding=2, dilation=2, deform_groups=2)
-    got = dcn_ops.modulated_deform_conv2d(x, off, mask, weight, bias, **kw)
-    want = dcn_ops.modulated_deform_conv2d_plain(x, off, mask, weight, bias, **kw)
-    assert rel(got, want) < TOL[torch.float32]
+    validity edges (-1, H - 1, H) of a 1x1 kernel, float32 and bfloat16."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x, off, mask, weight, bias = dcn_case(2, 16, 11, 13, 8, 1, 2, dtype, cuda)
+        kw = dict(stride=1, padding=2, dilation=2, deform_groups=2)
+        got = dcn_ops.modulated_deform_conv2d(x, off, mask, weight, bias, **kw)
+        want = dcn_ops.modulated_deform_conv2d_plain(x, off, mask, weight, bias, **kw)
+        assert rel(got, want) < TOL[dtype]
     H, W = 5, 6
     x = torch.randn(1, 3, H, W, device=cuda)
     edges = torch.tensor([-1.0, -0.999, 0.0, H - 1.0, H - 1 + 1e-3, H, 1e9, -1e9, 3e38])
@@ -145,12 +338,15 @@ def test_dcn_kernel_dilation_and_edges(cuda):
     off[0, 0].view(-1)[:len(edges)] = edges.to(cuda) - torch.arange(len(edges), device=cuda) // W
     ones = torch.ones(1, 1, H, W, device=cuda)
     w1 = torch.ones(1, 3, 1, 1, device=cuda)
-    got = dcn_ops.modulated_deform_conv2d(x, off, ones, w1, None, padding=0)
-    want = dcn_ops.modulated_deform_conv2d_plain(x, off, ones, w1, None, padding=0)
-    torch.cuda.synchronize()
-    assert torch.isfinite(got).all()
-    assert (got - want).abs().max() < 1e-5
-    assert got.view(-1)[0] == 0 and (got.view(-1)[5:9] == 0).all()
+    for dtype in (torch.float32, torch.bfloat16):
+        xd, od, md = x.to(dtype), off.to(dtype), ones.to(dtype)
+        got = dcn_ops.modulated_deform_conv2d(xd, od, md, w1, None, padding=0)
+        want = dcn_ops.modulated_deform_conv2d_plain(xd, od, md, w1, None, padding=0)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert (got.float() - want.float()).abs().max() < (1e-5 if dtype == torch.float32
+                                                           else 2e-2)
+        assert got.view(-1)[0] == 0 and (got.view(-1)[5:9] == 0).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -168,13 +364,13 @@ def test_dcn_int8_kernel_matches_plain(cuda, dtype, layout, N, Cin, H, W, Cout, 
     if layout == "NHWC":
         x, off, mask = (t.permute(0, 2, 3, 1).contiguous() for t in (x, off, mask))
     kw = dict(stride=stride, padding=1, dilation=1, deform_groups=1, layout=layout)
-    before = (dcn_ops.deform_im2col_int8.launches, dcn_ops.modulated_deform_conv2d.launches)
+    before = dcn_counts()
     q, scale = dcn_ops.quantize_dcn_table(x, chg, layout)
     col = dcn_ops.deform_im2col_int8(q, scale, off, mask, (3, 3), **kw)
     got = dcn_ops.modulated_deform_conv2d(x, off, mask, weight, bias, groups=1, quant="int8", **kw)
     torch.cuda.synchronize()
-    assert (dcn_ops.deform_im2col_int8.launches,
-            dcn_ops.modulated_deform_conv2d.launches) == (before[0] + 2, before[1])
+    # the int8 im2col once (the yardstick, here), the op: its table, then the fused kernel
+    assert dcn_counts() == step(before, (0, 0, 1, 1, 1))
     assert q.dtype == torch.int8 and q.shape == x.shape and tuple(scale.shape) == (N, Cin // chg)
     want_col = dcn_ops.deform_im2col_int8_plain(q, scale, off, mask, (3, 3), **kw)
     want = dcn_ops.modulated_deform_conv2d_plain(x, off, mask, weight, bias, groups=1,
@@ -185,19 +381,18 @@ def test_dcn_int8_kernel_matches_plain(cuda, dtype, layout, N, Cin, H, W, Cout, 
     assert rel(got, want) < TOL[dtype]
     full = dcn_ops.modulated_deform_conv2d(x, off, mask, weight, bias, groups=1, **kw)
     assert 1e-4 < rel(got, full) < 5e-2  # the int8 table is in use
-    assert dcn_ops.modulated_deform_conv2d.launches == before[1] + 1
+    assert dcn_counts() == step(before, (0, 0, 1, 1, 1), float_op_counts(dtype, layout))
 
 
 def test_dcn_int8_takes_the_float_table_where_it_is_not_eligible(cuda):
     """Two deform groups or a width that 32 does not divide: `quant` is
-    ignored, the floating-point kernel runs, bit for bit the same result."""
+    ignored, the floating-point op runs, bit for bit the same result."""
     for Cin, dg in ((48, 1), (64, 2)):
         x, off, mask, weight, bias = dcn_case(2, Cin, 9, 11, 8, 1, dg, torch.float32, cuda)
         kw = dict(stride=1, padding=1, dilation=1, deform_groups=dg)
-        before = (dcn_ops.deform_im2col_int8.launches, dcn_ops.modulated_deform_conv2d.launches)
+        before = dcn_counts()
         got = dcn_ops.modulated_deform_conv2d(x, off, mask, weight, bias, quant="int8", **kw)
-        assert (dcn_ops.deform_im2col_int8.launches,
-                dcn_ops.modulated_deform_conv2d.launches) == (before[0], before[1] + 1)
+        assert dcn_counts() == step(before, float_op_counts(torch.float32, "NCHW"))
         assert torch.equal(got, dcn_ops.modulated_deform_conv2d(x, off, mask, weight, bias, **kw))
 
 
@@ -335,8 +530,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                         weight)
     with pytest.raises(TypeError):
         dcn_ops.modulated_deform_conv2d(x.half(), off.half(), mask.half(), weight)
-    with pytest.raises(NotImplementedError, match="groups"):
-        dcn_ops.modulated_deform_conv2d(x, off, mask, weight[:, :4].contiguous(), groups=2)
+    with pytest.raises(ValueError, match="groups"):  # 8 channels in 3 groups
+        dcn_ops.modulated_deform_conv2d(x, off, mask, weight[:, :3].contiguous(), groups=3)
+    with pytest.raises(ValueError, match="weight matrix"):
+        dcn_ops.modulated_deform_conv2d(x.bfloat16(), off.bfloat16(), mask.bfloat16(), weight,
+                                        wmat=dcn_ops.dcn_weight_matrix(weight, torch.float32))
     with pytest.raises(TypeError, match="dtype"):
         dcn_ops.modulated_deform_conv2d(x, off.bfloat16(), mask, weight)
     with pytest.raises(ValueError, match="offset"):
@@ -405,7 +603,7 @@ def test_micro_engine_runs_through_the_kernels(cuda):
     classes, coords = engine.infer_frame(image, torch.zeros(18), l2i, "scene")
     torch.cuda.synchronize()
     per_frame = (2 * cfg.encoder_layers + cfg.decoder_layers, cfg.decoder_layers)
-    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [*per_frame] + [0] * 7
+    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [*per_frame] + [0] * 10
     assert torch.isfinite(classes).all() and torch.isfinite(coords).all()
 
 
@@ -436,7 +634,7 @@ def test_micro_int8_engine_runs_through_the_int8_kernels(cuda):
     for h in hooks:
         h.remove()
     E, D = cfg.encoder_layers, cfg.decoder_layers
-    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [E, 0, 0, len(calls), E + D, D, 0, 0, 0]
+    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [E, 0, 0, len(calls), E + D, D] + [0] * 6
     assert torch.isfinite(classes).all() and torch.isfinite(coords).all()
     feats = engine.model.img_backbone(torch.as_tensor(frames[0]["image"][0], device=cuda))
     with plain_versions():
@@ -451,7 +649,9 @@ def test_micro_int8_engine_runs_through_the_int8_kernels(cuda):
 def test_micro_r101_dcn_engine_runs_through_all_three_kernels(cuda):
     """Micro widths with base's backbone and neck: R101 caffe style, DCN on
     stages 3-4, three outputs, four levels.  One frame on the kernel path
-    launches 26 DCN im2cols and agrees with the plain path."""
+    launches 26 DCN im2cols in float32 and agrees with the plain path; the
+    backbone in bfloat16 launches 26 fused kernels and 26 gather tables and
+    agrees with its plain path in the rms norm."""
     from bevformer_tensorrt_tpu_torch.configs.bevformer import bevformer_micro
     from bevformer_tensorrt_tpu_torch.runtime.engine import BEVFormerEngine
     from bevformer_tensorrt_tpu_torch.tools.path_diff import plain_versions
@@ -466,20 +666,34 @@ def test_micro_r101_dcn_engine_runs_through_all_three_kernels(cuda):
     ops.reset_launch_counts()
     classes, coords = engine.infer_frame(image, torch.zeros(18), l2i, "scene")
     torch.cuda.synchronize()
-    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [
-        2 * cfg.encoder_layers + cfg.decoder_layers, cfg.decoder_layers, 26, 0, 0, 0, 0, 0, 0]
+    attn = [2 * cfg.encoder_layers + cfg.decoder_layers, cfg.decoder_layers]
+    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == attn + [0] * 8 + [26, 0]
     assert torch.isfinite(classes).all() and torch.isfinite(coords).all()
     with plain_versions():
         engine.reset()
         plain_classes, plain_coords = engine.infer_frame(image, torch.zeros(18), l2i, "scene")
     assert rel(classes, plain_classes) < 1e-4 and rel(coords, plain_coords) < 1e-4
+    # the backbone in bfloat16: the fused kernel and its gather table, no im2col
+    backbone = engine.model.img_backbone.to(torch.bfloat16)
+    image16 = image[0].to(cuda, torch.bfloat16)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        feats = backbone(image16)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [0, 0, 26] + [0] * 4 + [26] + [0] * 4
+    with plain_versions(), torch.inference_mode():
+        plain_feats = backbone(image16)
+    for a, b in zip(feats, plain_feats):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all()
+        assert float((a.float() - b.float()).norm() / b.float().norm()) < 2e-2
 
 
 def test_micro_r101_dcn_int8_engine_runs_through_the_int8_table_kernel(cuda):
     """The same backbone under the default int8 policy (head width 32, so the
-    int8 value tables and int8 flash run too): 26 int8-table im2cols and no
-    floating-point one per frame; with `dcn_tables` excluded the other way
-    round."""
+    int8 value tables and int8 flash run too): 26 int8-table DCN ops (the
+    gather table, then the fused kernel) and no floating-point one per
+    frame; with `dcn_tables` excluded 26 floating-point ones (float32: the
+    im2col route) and no int8-table one."""
     import numpy as np
 
     from bevformer_tensorrt_tpu_torch.configs.bevformer import bevformer_micro
@@ -499,7 +713,8 @@ def test_micro_r101_dcn_int8_engine_runs_through_the_int8_table_kernel(cuda):
     classes, coords = engine.infer_frame(**frames[0])
     torch.cuda.synchronize()
     counts = [fn.launches for fn in ops.KERNEL_WRAPPERS]
-    assert counts[:3] == [E, 0, 0] and counts[4:] == [E + D, D, 26, 0, 0] and counts[3] > 100
+    assert counts[:3] == [E, 0, 0] and counts[3] > 100
+    assert counts[4:] == [E + D, D, 26, 26, 0, 0, 0, 0]
     assert torch.isfinite(classes).all() and torch.isfinite(coords).all()
     other = BEVFormerEngine(bevformer_micro(
         quant="int8", quant_exclude=("self_attn/msda_tables", "dcn_tables"), **over), seed=0)
@@ -507,6 +722,7 @@ def test_micro_r101_dcn_int8_engine_runs_through_the_int8_table_kernel(cuda):
     ops.reset_launch_counts()
     other_classes, other_coords = other.infer_frame(**frames[0])
     torch.cuda.synchronize()
-    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [E, 0, 26, counts[3], E + D, D, 0, 0, 0]
+    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [
+        E, 0, 0, counts[3], E + D, D, 0, 0, 0, 0, 26, 0]
     drift = float((coords - other_coords).abs().mean())
     assert 0 < drift < 0.3  # the table is in use; its noise moves the boxes a little

@@ -158,7 +158,7 @@ def test_cpu_inputs_take_the_plain_path(rng):
     idx = torch.from_numpy(rng.integers(0, 40, (2, 5, 3, 4)).astype(np.int32))
     ops.gather_rows(table, idx.reshape(2, -1))
     ops.gather_blend(table, idx, torch.ones(2, 5, 3, 4))
-    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [0] * 9
+    assert [fn.launches for fn in ops.KERNEL_WRAPPERS] == [0] * 12
 
 
 def dcn_case(rng, dg, stride, N=2, Cin=8, H=9, W=11, Cout=6, groups=1):
