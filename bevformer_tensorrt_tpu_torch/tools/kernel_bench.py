@@ -3,7 +3,7 @@ production kernel at the models' shapes beside its bound, and what share of
 the MSDA kernel's time is the gather.
 
     python -m bevformer_tensorrt_tpu_torch.tools.kernel_bench [--span N ...]
-        [--shapes sca_base sca_tiny] [--parts probes production split dcn_split]
+        [--shapes sca_base sca_tiny] [--parts probes production split dcn_split flash]
         [--build-report] [--out FILE] [--device cuda]
 
 It takes the place of the JAX package's TPU design-space probes
@@ -39,6 +39,13 @@ counterpart on a GPU; what is left is
               loads (the sampled tiles blend zeros) and without its product,
               with the blocks an SM holds; the table, the whole op, the
               parent's route and `F.conv2d` beside them.
+  flash       (asked for by name) both attention ops at their shapes, per
+              dtype: the floating-point kernel on [B, L, d] and on the heads
+              where they lie, with SDPA and TFLOP/s; the int8 op whole, its
+              attention kernel alone and its quantization alone; each
+              kernel at 1, 2 and 4 row groups a block (the geometry rule
+              picks one); the device kernels one call launches
+              (torch.profiler).
   --build-report  compiles each source again on its own and prints nvcc's
               time and ptxas' registers and spills.
 
@@ -69,7 +76,7 @@ from ..ops import msda as msda_ops
 from ..runtime.engine import resolve_device
 from . import kernel_cases as kc
 
-PARTS = ("probes", "production", "split", "dcn_split")
+PARTS = ("probes", "production", "split", "dcn_split", "flash")
 DEFAULT_PARTS = PARTS[:3]
 DCN_KINDS = {  # operand kind: (activation dtype, int8 table)
     "bf16": (torch.bfloat16, False), "int8": (torch.float32, True),
@@ -94,8 +101,8 @@ class Bench:
         if dtype is not None:
             row["dtype"] = kc.dtype_name(dtype)
         if work is not None and self.cuda:
-            nbytes, flops, peak = work
-            row["bound_ms"], row["bound_by"] = kc.bound(nbytes, flops, peak)
+            nbytes, flops, peak, *exps = work  # (bytes, flops, peak[, exponentials])
+            row["bound_ms"], row["bound_by"] = kc.bound(nbytes, flops, peak, *exps)
             row["mbytes"], row["gflop"] = nbytes / 1e6, flops / 1e9
         row.update(more)
         self.rows.append(row)
@@ -163,15 +170,18 @@ def run_production(bench, shapes):
                     None, dtype)
         for name, spec in shapes["flash"].items():
             q, k, v = kc.flash_inputs(spec, dtype, gen, dev)
+            nbytes, flops, exps = kc.flash_work(q, k, v)
             bench.emit("production", "flash_attn", name,
                        bench.ms(lambda: ops.flash_attention(q, k, v)),
-                       (*kc.flash_work(q, k, v), dtype), dtype)
+                       (nbytes, flops, kc.flash_peak(dtype), exps), dtype)
+            if spec[3] not in attn_ops.INT8_FLASH_HEAD_DIMS:
+                continue
             operands = attn_ops.int8_operands(q, k, v) if bench.cuda else None
-            _, alone = kc.flash_int8_work(q, k, v)
+            _, (nbytes, ops8, exps) = kc.flash_int8_work(q, k, v)
             bench.emit("production", "flash_int8", name, bench.ms(
                 lambda: (ops.flash_attention_int8(q, k, v, operands) if bench.cuda
                          else ops.flash_attention_int8(q, k, v))),
-                (*alone, torch.int8), dtype,
+                (nbytes, ops8, torch.int8, exps), dtype,
                 **({"note": "kernel alone, operands quantized ahead"} if bench.cuda else {}))
         for name, spec in shapes["dcn"].items():
             x, off, mask, weight, geo = kc.dcn_inputs(spec, dtype, gen, dev)
@@ -236,6 +246,59 @@ def run_production(bench, shapes):
         del x, w
     if bench.cuda:
         torch.cuda.empty_cache()
+
+
+def run_flash(bench, shapes):
+    """Both attention ops at each shape, per dtype: the floating-point
+    kernel on [B, L, d] and on the heads where they lie ([1, L, B * d]
+    through `multi_head_attention`), SDPA beside it; the int8 op whole, its
+    attention kernel alone (operands quantized ahead), its two quantization
+    launches alone, and the device kernels one op call launches."""
+    dev, gen = bench.dev, bench.gen
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, spec in shapes.items():
+            q, k, v = kc.flash_inputs(spec, dtype, gen, dev)
+            B, Lq, Lk, d = spec[:4]
+            qh, kh, vh = (kc.heads_layout(t) for t in (q, k, v))
+            nbytes, flops, exps = kc.flash_work(q, k, v)
+            t = bench.ms(lambda: ops.flash_attention(q, k, v))
+            more = {}
+            if bench.cuda:
+                out = torch.empty_like(q)
+                more = dict(tflops=flops / t / 1e9, heads_ms=bench.ms(
+                    lambda: ops.multi_head_attention(qh, kh, vh, B)),
+                    row_groups=attn_ops.flash_launch_geometry(B, Lq, Lk, d, kc.dtype_name(dtype))
+                    ["warps"], ms_by_row_groups={w: bench.ms(lambda: attn_ops._launch_flash(
+                        q, k, v, out, 1, attn_ops.flash_launch_geometry(
+                            B, Lq, Lk, d, kc.dtype_name(dtype), warps=w)))
+                        for w in attn_ops.WARP_CHOICES},
+                    library_ms=bench.ms(
+                        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)),
+                    launches=kc.device_kernels(lambda: ops.multi_head_attention(qh, kh, vh, B)))
+            bench.emit("flash", "flash_attn", name, t,
+                       (nbytes, flops, kc.flash_peak(dtype), exps), dtype, **more)
+            if d not in attn_ops.INT8_FLASH_HEAD_DIMS:
+                continue
+            whole, alone = kc.flash_int8_work(q, k, v)
+            t = bench.ms(lambda: ops.flash_attention_int8(q, k, v))
+            more = {}
+            if bench.cuda:
+                operands = attn_ops.int8_operands(q, k, v)
+                out = torch.empty_like(q)
+                more = dict(
+                    row_groups=attn_ops.flash_launch_geometry(B, Lq, Lk, d, "int8")["warps"],
+                    kernel_ms_by_row_groups={w: bench.ms(lambda: attn_ops._launch_flash_int8(
+                        operands, out, 1, attn_ops.flash_launch_geometry(
+                            B, Lq, Lk, d, "int8", warps=w)))
+                        for w in attn_ops.WARP_CHOICES},
+                    kernel_ms=bench.ms(lambda: ops.flash_attention_int8(q, k, v, operands)),
+                    kernel_bound_ms=kc.bound(alone[0], alone[1], torch.int8, alone[2])[0],
+                    quantize_ms=bench.ms(lambda: attn_ops.flash_int8_quantize(qh, kh, vh, B)),
+                    heads_ms=bench.ms(lambda: ops.multi_head_attention(qh, kh, vh, B, int8=True)),
+                    launches=kc.device_kernels(
+                        lambda: ops.multi_head_attention(qh, kh, vh, B, int8=True)))
+            bench.emit("flash", "flash_int8", name, t,
+                       (whole[0], whole[1], torch.int8, whole[2]), dtype, **more)
 
 
 def run_split(bench, shapes):
@@ -394,6 +457,8 @@ def main(argv=None):
             run_split(bench, split)
         if "dcn_split" in args.parts:
             run_dcn_split(bench, dcn_split, args.dcn_kinds)
+        if "flash" in args.parts:
+            run_flash(bench, production["flash"])
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(dict(card=card, rows=rows, build=report), fh, indent=1)

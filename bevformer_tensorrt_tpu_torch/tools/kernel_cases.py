@@ -7,7 +7,9 @@ of the bytes the function must move (each input read once, each output
 written once) over the memory rate and its operations over the peak rate of
 their type.  The rates are the published peaks of one NVIDIA H100 SXM:
 3.35 TB/s, 67 TFLOP/s float32 outside the tensor cores, 989 TFLOP/s
-bfloat16, 1979 TOP/s int8.
+bfloat16, 1979 TOP/s int8, 495 TFLOP/s TF32 (a float32 product as split
+TF32 takes three), and the special-function units' 16 exponentials a clock
+per SM at the 1.83 GHz those peaks assume (132 SMs: 3.87 T a second).
 """
 from __future__ import annotations
 
@@ -17,7 +19,9 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int8: 1979e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int8: 1979e12,
+              "split_tf32": 495e12 / 3}
+EXP_PER_S = 16 * 132 * 1.83e9
 SLEEP_CYCLES = 20_000_000  # ~10 ms of device sleep ahead of a timed batch
 
 MSDA_SHAPES = {
@@ -46,6 +50,7 @@ FLASH_SHAPES = {
     "decoder": (8, 900, 900, 32, 6, 6),
     "ragged": (8, 777, 611, 32, 0, 0),
     "d64": (8, 900, 900, 64, 0, 0),
+    "d8": (8, 900, 900, 8, 0, 0),  # the micro configuration's head width (floating point only)
 }
 DCN_SHAPES = {
     # name: (N, Cin, H, W, Cout, stride, deform groups, launches per base frame,
@@ -123,6 +128,27 @@ def device_ms(fn, n=20, repeats=5):
     return float(np.median(out))
 
 
+def device_kernels(fn, tries=3):
+    """Names of the device kernels (and copies) one call of `fn` launches
+    (torch.profiler, after a warm-up call), or None if the tracer saw
+    nothing.  A device sleep ahead of the call keeps its first launches clear
+    of the tracer's start and shows that the tracer was live: a window
+    without the sleep's kernel is taken again."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda._sleep(SLEEP_CYCLES // 20)
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if any("spin_kernel" in n for n in names):
+            return [n for n in names if "spin_kernel" not in n]
+    return None
+
+
 def host_ms(fn, n=2, repeats=2):
     """Host-clock ms of a call on the CPU (a rehearsal, not a device time)."""
     fn()
@@ -135,9 +161,12 @@ def host_ms(fn, n=2, repeats=2):
     return float(np.median(out))
 
 
-def bound(nbytes, flops, dtype):
-    """(ms, "bytes" or "operations"): the larger of the two least times."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+def bound(nbytes, flops, dtype, exps=0):
+    """(ms, "bytes" or "operations"): the larger of the least times of the
+    bytes, of the products at the peak of `dtype` (a dtype or a key of
+    PEAK_FLOPS) and of `exps` exponentials on the special-function units."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(flops / PEAK_FLOPS[dtype], exps / EXP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -233,16 +262,34 @@ def flash_inputs(spec, dtype, gen, dev):
 
 
 def flash_work(q, k, v):
-    flops = 4 * q.shape[0] * q.shape[1] * k.shape[1] * q.shape[2]
-    return (2 * q.numel() + k.numel() + v.numel()) * q.element_size(), flops
+    """(bytes, flops, exponentials) of attention over q [B, Lq, d], k / v
+    [B, Lk, d]: q, k, v read and the output written once; 4 flops a (query,
+    key, channel); one exponential a (query, key)."""
+    B, Lq, d = q.shape
+    Lk = k.shape[1]
+    return (2 * q.numel() + k.numel() + v.numel()) * q.element_size(), 4 * B * Lq * Lk * d, B * Lq * Lk
+
+
+def heads_layout(t):
+    """[B, L, d] -> [1, L, B * d]: the B problems as the heads of one
+    sequence, where `multi_head_attention` reads them (head h = t[h])."""
+    B, L, d = t.shape
+    return t.transpose(0, 1).reshape(1, L, B * d).contiguous()
+
+
+def flash_peak(dtype):
+    """The peak the floating-point flash kernel's products run at: bfloat16
+    on the tensor cores, float32 as split TF32 (three TF32 products)."""
+    return "split_tf32" if dtype == torch.float32 else dtype
 
 
 def flash_int8_work(q, k, v):
-    """((wrapper bytes, ops), (kernel-alone bytes, ops)): the kernel alone
-    reads int8 operands with their three scales and writes the output."""
-    nbytes, ops = flash_work(q, k, v)
+    """((wrapper bytes, ops, exponentials), (kernel-alone bytes, ops,
+    exponentials)): the kernel alone reads int8 operands with their scales
+    and writes the output."""
+    nbytes, ops, exps = flash_work(q, k, v)
     alone = q.numel() + k.numel() + v.numel() + 8 + q.numel() * q.element_size()
-    return (nbytes, ops), (alone, ops)
+    return (nbytes, ops, exps), (alone, ops, exps)
 
 
 # ---- deformable im2col --------------------------------------------------------

@@ -38,6 +38,7 @@ FAMILIES = (  # first match wins
     ("int8 gemm kernel", r"int8_gemm_kernel"),
     ("msda int8 kernel", r"msda_kernel<signed char"),
     ("flash int8 kernel", r"flash_int8_kernel"),
+    ("flash int8 quantize kernel", r"flash_int8_(amax|quantize)"),
     ("msda kernel", r"msda_kernel"),
     ("flash kernel", r"flash_kernel"),
     ("dcn int8 kernel", r"dcn_(wgmma|ffma)_kernel<[^>]*signed char"),

@@ -13,8 +13,11 @@ Phases (any failure exits non-zero before the result lines):
      taps a head in two passes, ch 256 in two chunks, 64 heads x 256 taps
      in four passes), float32 and bfloat16, with samples past every border.
   2. Flash-attention kernel vs its plain version: (8, 900, 32), a ragged
-     length and head dim 64, float32 and bfloat16;
-     `scaled_dot_product_attention` is timed beside it as a yardstick.
+     length, head dims 64 and 8, float32 and bfloat16, and at the decoder
+     shape the heads read where they lie (`multi_head_attention`, one
+     device kernel a call, counted with torch.profiler);
+     `scaled_dot_product_attention` is timed beside it as a yardstick,
+     with the bound (bytes, products, exponentials) and TFLOP/s.
   3. DCNv2: the whole op vs its plain version, NCHW and NHWC, at the
      stage-3 and stage-4 shapes of base and small, one shape with stride 2,
      two deform groups and a ragged size, and one with two groups, float32
@@ -49,7 +52,10 @@ Phases (any failure exits non-zero before the result lines):
      shapes of tiny and base and the edge shapes of phase 1, the kernel
      alone and with the quantization.
   9. int8 flash attention vs its plain version at (8, 900, 32), a ragged
-     length and head dim 64.
+     length and head dim 64, and the heads where they lie; the codes and
+     scales of its amax and quantize launches bit for bit `int8_operands`';
+     the op, the attention kernel alone and the quantization alone timed,
+     and the device kernels of one call counted (at most three).
  10. BEVFormer-tiny under quant="int8", default policy, at full width:
      calibrate the QDQ tier on the card over four synthetic frames (`max`
      and `entropy` both run; `entropy` is used), attach and fold the scales
@@ -236,7 +242,18 @@ def phase_msda(dev, gen):
     return rows
 
 
+def launch_count(kernels):
+    return "not measured (the profiler saw nothing)" if kernels is None else len(kernels)
+
+
 def phase_flash(dev, gen):
+    """Flash attention against its plain version at each shape, [B, L, d];
+    at the decoder shape also the B problems as the heads of one sequence
+    through `multi_head_attention`, which the kernel reads where they lie,
+    with the device kernels one such call launches (torch.profiler: no copy
+    splits or merges the heads).  SDPA is timed beside it; the bound is the
+    larger of the bytes, the products (bfloat16 on the tensor cores, float32
+    as split TF32: three TF32 products) and the exponentials."""
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for name, (B, Lq, Lk, d, per_tiny, per_base) in FLASH_SHAPES.items():
@@ -245,17 +262,38 @@ def phase_flash(dev, gen):
             want = attn_ops.qkv_plain(q, k, v)
             torch.cuda.synchronize()
             err = max_err(got, want, dtype, f"flash {name} {dtype}")
-            b_ms, b_by = bound(*kc.flash_work(q, k, v), dtype)
+            nbytes, flops, exps = kc.flash_work(q, k, v)
+            b_ms, b_by = bound(nbytes, flops, kc.flash_peak(dtype), exps)
             ms = device_ms(lambda: attn_ops.flash_attention(q, k, v))
             plain_ms = device_ms(lambda: attn_ops.qkv_plain(q, k, v), n=5)
             lib_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
             row = dict(shape=name, dtype=dtype_name(dtype), B=B, Lq=Lq, Lk=Lk, d=d,
                        launches_per_frame={"tiny": per_tiny, "base": per_base},
-                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       geometry=attn_ops.flash_launch_geometry(B, Lq, Lk, d, dtype_name(dtype)),
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms, tflops=flops / ms / 1e9,
                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            if name == "decoder":
+                qh, kh, vh = (kc.heads_layout(t) for t in (q, k, v))
+                goth = attn_ops.multi_head_attention(qh, kh, vh, B)
+                torch.cuda.synchronize()
+                row["heads_max_abs_err"] = max_err(goth, kc.heads_layout(want), dtype,
+                                                   f"flash {name} {dtype}, heads where they lie")
+                row["heads_ms"] = device_ms(lambda: attn_ops.multi_head_attention(qh, kh, vh, B))
+                row["device_kernels"] = kc.device_kernels(
+                    lambda: attn_ops.multi_head_attention(qh, kh, vh, B))
+                # the int8 op's, counted here too, before the later phases
+                row["int8_device_kernels"] = kc.device_kernels(
+                    lambda: attn_ops.multi_head_attention(qh, kh, vh, B, int8=True))
+                for key, most in (("device_kernels", 1), ("int8_device_kernels", 3)):
+                    if row[key] is not None and len(row[key]) > most:
+                        raise AssertionError(f"flash: one call launched {row[key]}")
             rows.append(row)
-            log(f"flash {name:8s} {row['dtype']:9s} err {err:.3e}  kernel {ms:.4f} ms  "
-                f"plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound {b_ms * 1e3:.2f} us ({b_by})")
+            log(f"flash {name:8s} {row['dtype']:9s} err {err:.3e}  kernel {ms * 1e3:.2f} us "
+                f"({row['tflops']:.1f} TFLOP/s)  sdpa {lib_ms * 1e3:.2f} us  plain {plain_ms:.4f} ms"
+                f"  bound {b_ms * 1e3:.2f} us ({b_by})"
+                + (f"  heads where they lie {row['heads_ms'] * 1e3:.2f} us, device kernels a "
+                   f"call {launch_count(row['device_kernels'])} (int8 op "
+                   f"{launch_count(row['int8_device_kernels'])})" if "heads_ms" in row else ""))
     return rows
 
 
@@ -469,40 +507,72 @@ def phase_msda_int8(dev, gen):
 
 def phase_flash_int8(dev, gen):
     """int8 flash attention against its plain version (the same 256-key
-    requantization blocks); `kernel_ms` is the kernel alone on operands
-    quantized ahead."""
+    requantization blocks), [B, L, d] and, at the decoder shape, the heads
+    where they lie; its amax and quantize launches' codes and scales bit for
+    bit `int8_operands`'.  `ms` is the whole op (three launches), `kernel_ms`
+    the attention kernel alone on operands quantized ahead (`operands=`),
+    `quantize_ms` the amax and quantize launches alone; the device kernels
+    one decoder call launches are counted with torch.profiler (at most
+    three)."""
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for name, (B, Lq, Lk, d, per_tiny, per_base) in FLASH_SHAPES.items():
+            if d not in attn_ops.INT8_FLASH_HEAD_DIMS:
+                continue
             q, k, v = kc.flash_inputs((B, Lq, Lk, d), dtype, gen, dev)
             got = attn_ops.flash_attention_int8(q, k, v)
             want = attn_ops.flash_attention_int8_plain(q, k, v)
+            operands = attn_ops.int8_operands(q, k, v)
+            codes = attn_ops.flash_int8_quantize(q, k, v)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             scale = float(want.float().abs().max())
             if not np.isfinite(err) or err > FLASH_INT8_TOL[dtype] * scale:
                 raise AssertionError(f"flash int8 {name} {dtype}: max abs err {err} vs {scale}")
+            if not all(torch.equal(a, b) for a, b in zip(codes, operands)):
+                raise AssertionError(f"flash int8 {name} {dtype}: codes or scales differ from "
+                                     "int8_operands")
             float_err = float((got.float() - attn_ops.qkv_plain(q, k, v).float()).abs().max())
             whole, alone = kc.flash_int8_work(q, k, v)
-            b_ms, b_by = bound(*whole, torch.int8)
-            kb_ms, kb_by = bound(*alone, torch.int8)
-            operands = attn_ops.int8_operands(q, k, v)
+            b_ms, b_by = bound(whole[0], whole[1], torch.int8, whole[2])
+            kb_ms, kb_by = bound(alone[0], alone[1], torch.int8, alone[2])
             ms = device_ms(lambda: attn_ops.flash_attention_int8(q, k, v))
             kernel_ms = device_ms(lambda: attn_ops.flash_attention_int8(q, k, v, operands))
+            quantize_ms = device_ms(lambda: attn_ops.flash_int8_quantize(q, k, v))
             float_ms = device_ms(lambda: attn_ops.flash_attention(q, k, v))
             plain_ms = device_ms(lambda: attn_ops.flash_attention_int8_plain(q, k, v), n=5)
             lib_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
             row = dict(shape=name, dtype=dtype_name(dtype), B=B, Lq=Lq, Lk=Lk, d=d,
                        launches_per_frame={"tiny": per_tiny, "base": per_base},
+                       geometry=attn_ops.flash_launch_geometry(B, Lq, Lk, d, "int8"),
                        max_abs_err=err, err_vs_float_attention=float_err, ms=ms,
-                       kernel_ms=kernel_ms, float_kernel_ms=float_ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, kernel_bound_ms=kb_ms,
-                       kernel_bound_by=kb_by, library_ms=lib_ms)
+                       kernel_ms=kernel_ms, quantize_ms=quantize_ms, float_kernel_ms=float_ms,
+                       plain_ms=plain_ms, tops=whole[1] / ms / 1e9,
+                       kernel_tops=whole[1] / kernel_ms / 1e9, bound_ms=b_ms, bound_by=b_by,
+                       kernel_bound_ms=kb_ms, kernel_bound_by=kb_by, library_ms=lib_ms)
+            if name == "decoder":
+                qh, kh, vh = (kc.heads_layout(t) for t in (q, k, v))
+                goth = attn_ops.multi_head_attention(qh, kh, vh, B, int8=True)
+                torch.cuda.synchronize()
+                herr = float((goth.float() - kc.heads_layout(want).float()).abs().max())
+                if not np.isfinite(herr) or herr > FLASH_INT8_TOL[dtype] * scale:
+                    raise AssertionError(f"flash int8 {name} {dtype}, heads where they lie: "
+                                         f"max abs err {herr} vs {scale}")
+                row["heads_max_abs_err"] = herr
+                row["heads_ms"] = device_ms(
+                    lambda: attn_ops.multi_head_attention(qh, kh, vh, B, int8=True))
+                row["device_kernels"] = kc.device_kernels(
+                    lambda: attn_ops.multi_head_attention(qh, kh, vh, B, int8=True))
+                if row["device_kernels"] is not None and len(row["device_kernels"]) > 3:
+                    raise AssertionError(f"flash int8: one call launched {row['device_kernels']}")
             rows.append(row)
             log(f"flash int8 {name:8s} {row['dtype']:9s} err {err:.3e} (vs float attention "
-                f"{float_err:.3e})  wrapper {ms:.4f} ms  kernel alone {kernel_ms:.4f} ms "
-                f"(float kernel {float_ms:.4f})  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  "
-                f"bound {b_ms * 1e3:.2f} us ({b_by})")
+                f"{float_err:.3e})  op {ms * 1e3:.2f} us  kernel alone {kernel_ms * 1e3:.2f} us  "
+                f"quantize {quantize_ms * 1e3:.2f} us  (float kernel {float_ms * 1e3:.2f} us)  "
+                f"plain {plain_ms:.4f} ms  sdpa {lib_ms * 1e3:.2f} us  bound {b_ms * 1e3:.2f} us "
+                f"({b_by}), kernel alone {kb_ms * 1e3:.2f} us"
+                + (f"  device kernels a call {launch_count(row['device_kernels'])}"
+                   if "device_kernels" in row else ""))
     return rows
 
 
@@ -1308,6 +1378,10 @@ def main(argv=None):
     quantize_note = ("; ms is the wrapper, which quantizes its floating-point inputs with plain "
                      "passes before the launch, kernel_ms the kernel alone, float_kernel_ms the "
                      "floating-point kernel at the same shape")
+    flash8_note = ("; ms is the whole op (amax, quantize and attention launches), kernel_ms the "
+                   "attention kernel alone on operands quantized ahead, quantize_ms the amax "
+                   "and quantize launches, float_kernel_ms the floating-point kernel at the "
+                   "same shape")
     extra = ("kernel_ms", "float_kernel_ms", "kernel_bound_ms")
     kernels += [
         gemm,
@@ -1320,8 +1394,8 @@ def main(argv=None):
         kernel_entry("flash_int8", "bevformer_tensorrt_tpu_torch/csrc/flash_attn_int8.cu",
                      "bevformer_tensorrt_tpu/ops/pallas/flash_attn.py:118",
                      res["flash_int8"], True, "tiny", tiny8["launches"]["flash_int8"],
-                     also=("base", base8["launches"]["flash_int8"]), extra=extra,
-                     note=quantize_note),
+                     also=("base", base8["launches"]["flash_int8"]),
+                     extra=extra + ("quantize_ms",), note=flash8_note),
     ]
     small8, probes = res["small_int8"], res["probes"]
     kernels.append(kernel_entry(

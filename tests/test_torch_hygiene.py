@@ -266,6 +266,10 @@ def test_seeded_init_is_deterministic():
      "msda int8 kernel"),
     ("void (anonymous namespace)::flash_int8_kernel<float, 32>(signed char const*)",
      "flash int8 kernel"),
+    ("void (anonymous namespace)::flash_int8_amax<float>(float const*, float const*)",
+     "flash int8 quantize kernel"),
+    ("void (anonymous namespace)::flash_int8_quantize<__nv_bfloat16>(__nv_bfloat16 const*)",
+     "flash int8 quantize kernel"),
     ("Memcpy HtoD (Pageable -> Device)", "memcpy"),
 ])
 def test_profile_kernel_families(name, fam):

@@ -1,10 +1,13 @@
-"""The Python around the port's int8 product, MSDA and fused DCN kernels, on
-the CPU: the rule that picks the product's tile configuration, the TMA
+"""The Python around the port's int8 product, MSDA, fused DCN and flash
+attention kernels, on the CPU: the rule that picks the product's tile
+configuration, the TMA
 tensor-map arguments and their checks, the MSDA launch geometry (several
 phase-1 passes and channel chunks where one block cannot take a problem;
 every shape of one pass and one chunk exactly as before), the fused DCN
-kernel's tile configuration and its walk over K, and the weight matrices
-that the quantized layers and the DCN block keep.  Every configuration and
+kernel's tile configuration and its walk over K, the weight matrices
+that the quantized layers and the DCN block keep, and the flash kernels'
+launch geometry and the numerics of their fragment layouts (numpy models of
+the split-TF32 products and of the int8 P.V key permutation).  Every configuration and
 geometry must fit in the shared memory of one Hopper block (227 KB) at
 every shape of `tools/kernel_cases.py`."""
 import importlib
@@ -15,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from bevformer_tensorrt_tpu_torch.models.layers import QConv, QDense, _quantize_input, int8_im2col
+from bevformer_tensorrt_tpu_torch.ops import attention as attn_ops
 from bevformer_tensorrt_tpu_torch.ops import msda as msda_ops
 from bevformer_tensorrt_tpu_torch.quant.fold import (
     attach_quant_scales,
@@ -252,3 +256,183 @@ def test_layers_keep_the_matrix_and_drop_it_with_wq():
     attach_quant_scales(conv, {"qdq_in": 0.03})
     assert torch.equal(conv.wmat, int8_weight_matrix(quantize_weight(conv.weight)[0]))
     assert fold_int8_weights(conv).wmat is not None
+
+
+# ---- flash attention ---------------------------------------------------------
+
+FLASH_CASES = sorted({(name, kind, d)
+                      for name in kc.FLASH_SHAPES
+                      for kind in attn_ops.FLASH_KINDS
+                      for d in (attn_ops.INT8_FLASH_HEAD_DIMS if kind == "int8"
+                                else attn_ops.FLASH_HEAD_DIMS)})
+
+
+@pytest.mark.parametrize("Lq_extra", [0, 1, 15, 17])
+@pytest.mark.parametrize("name,kind,d", FLASH_CASES)
+def test_flash_geometry_fits_and_covers_every_row(name, kind, d, Lq_extra):
+    """At every shape the wrappers take (and at ragged query lengths), at
+    every head dim of its kind: shared memory within a block's limit and two
+    blocks an SM where the grid needs them, every query row in one block
+    and one warp's 16 rows, at least one block per SM where the shape has
+    the rows for it."""
+    B, Lq, Lk = kc.FLASH_SHAPES[name][:3]
+    Lq += Lq_extra
+    geo = attn_ops.flash_launch_geometry(B, Lq, Lk, d, kind)
+    gx, gy = geo["grid"]
+    rows = geo["rows_per_warp"] * geo["warps"]
+    assert gy == B and geo["rows_per_warp"] == 16 and geo["splits"] == 4
+    assert geo["threads"] == 32 * geo["warps"] * geo["splits"] <= 1024
+    assert (gx - 1) * rows < Lq <= gx * rows  # each row once, no empty block
+    assert geo["smem"] == attn_ops.flash_smem_bytes(d, kind, geo["warps"]) <= attn_ops.SMEM_LIMIT
+    assert geo["kv_tile"] == (256 if kind == "int8" else 64)
+    if gx * gy > SMS:  # the grid needs more than one block an SM
+        assert 2 * (geo["smem"] + 1024) <= SM_SMEM or (kind, d) == ("int8", 64)
+    if -(-Lq // 16) * B >= SMS:
+        assert gx * gy >= SMS
+    if geo["warps"] < 4:  # a larger block would leave SMs without one
+        assert -(-Lq // (16 * 2 * geo["warps"])) * B < SMS
+
+
+def test_flash_geometry_at_the_decoder():
+    """The decoder's self-attention (8 heads, 900 queries): 2 row groups of
+    4 warps, 232 blocks, none of the 132 SMs idle."""
+    for kind in attn_ops.FLASH_KINDS:
+        geo = attn_ops.flash_launch_geometry(8, 900, 900, 32, kind)
+        assert geo["grid"] == (29, 8) and geo["warps"] == 2 and geo["threads"] == 256
+    assert attn_ops.flash_launch_geometry(1, 33, 40, 8, "bfloat16")["warps"] == 1
+    for kind, d in (("int8", 64), ("float32", 64), ("bfloat16", 8)):  # the bench's row groups
+        for w in attn_ops.WARP_CHOICES:
+            geo = attn_ops.flash_launch_geometry(8, 900, 900, d, kind, warps=w)
+            assert geo["warps"] == w and geo["grid"] == (-(-900 // (16 * w)), 8)
+            assert geo["smem"] == attn_ops.flash_smem_bytes(d, kind, w) <= attn_ops.SMEM_LIMIT
+    for kind, d in (("int8", 8), ("float32", 48), ("fp16", 32)):
+        with pytest.raises(ValueError, match="head dims"):
+            attn_ops.flash_launch_geometry(8, 900, 900, d, kind)
+    with pytest.raises(ValueError, match="empty"):
+        attn_ops.flash_launch_geometry(8, 0, 900, 32, "int8")
+
+
+def tf32_round(x):
+    """cvt.rna.tf32.f32 on the bits: to nearest, ties away from zero, 10
+    explicit mantissa bits."""
+    b = x.astype(np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_split(x):
+    """The kernel's split (csrc/mma_sync.cuh::tf32_split): big = x cut to
+    TF32, small = rna(x - big)."""
+    x = x.astype(np.float32)
+    big = (x.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+    return big, tf32_round(x - big)
+
+
+def split_product(a, b):
+    """a @ b as the float32 kernel runs it: big.big + big.small + small.big
+    of TF32 terms, float32 sums (a product of two TF32 values is exact in
+    float32)."""
+    (ab, asm), (bb, bsm) = tf32_split(a), tf32_split(b)
+    return (ab @ bsm + asm @ bb) + ab @ bb
+
+
+def attention_f32(q, k, v, product):
+    s = product(q, np.swapaxes(k, 1, 2)) / np.float32(np.sqrt(q.shape[-1]))
+    p = np.exp(s - s.max(-1, keepdims=True)).astype(np.float32)
+    return product(p, v) / p.sum(-1, keepdims=True)
+
+
+def test_split_tf32_holds_the_float32_bar_and_one_term_does_not():
+    """A numpy model of the float32 kernel's products over the decoder shape
+    (8 x 900 x 900, d 32): split TF32 within 3e-6 of float64 attention (the
+    card's bar against the plain version is 1e-5), one TF32 term far outside
+    1e-5."""
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal((8, 900, 32)).astype(np.float32) for _ in range(3))
+    s = np.einsum("bqd,bkd->bqk", q.astype(np.float64), k.astype(np.float64)) / np.sqrt(32)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    want = np.einsum("bqk,bkd->bqd", p / p.sum(-1, keepdims=True), v.astype(np.float64))
+
+    def rel(got):
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    split = rel(attention_f32(q, k, v, split_product))
+    one = rel(attention_f32(q, k, v, lambda a, b: tf32_round(a) @ tf32_round(b)))
+    assert split < 3e-6 and one > 1e-5, (split, one)
+
+
+def byte_perm(x, y, sel):
+    """__byte_perm(x, y, sel) on uint32 arrays."""
+    src = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(src[(sel >> (4 * i)) & 0x7] << (8 * i) for i in range(4))
+
+
+def mma_s8(a, b):
+    """mma.m16n8k32 s8 on the fragments of csrc/mma_sync.cuh: a [32 lanes,
+    4 words], b [32 lanes, 2 words] -> C [16, 8] int32."""
+    A = np.zeros((16, 32), np.int64)
+    B = np.zeros((32, 8), np.int64)
+
+    def s8(word, j):  # byte j of a word, as a signed int8
+        x = word >> (8 * j) & 0xFF
+        return x - 256 if x > 127 else x
+
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for j in range(4):
+            A[g, 4 * t + j] = s8(a[lane][0], j)
+            A[g + 8, 4 * t + j] = s8(a[lane][1], j)
+            A[g, 16 + 4 * t + j] = s8(a[lane][2], j)
+            A[g + 8, 16 + 4 * t + j] = s8(a[lane][3], j)
+            B[4 * t + j, g] = s8(b[lane][0], j)
+            B[16 + 4 * t + j, g] = s8(b[lane][1], j)
+    return A @ B
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_int8_key_permutation_gives_the_plain_product(seed):
+    """A numpy model of the int8 kernel's P.V over one 256-key block: p8
+    packed from the accumulator fragments of q8 k8^T (keys 2t, 2t + 1 of
+    each 8-key tile) into A fragments, v8 transposed into [d][keys] with the
+    kernel's byte permutes, and the m16n8k32 steps: the int32 product equals
+    p8 @ v8 exactly."""
+    rng = np.random.default_rng(seed)
+    d = 32
+    p8 = rng.integers(0, 128, (16, 256)).astype(np.int64)
+    v8 = rng.integers(-127, 128, (256, d)).astype(np.int64)
+    vbytes = (v8 & 0xFF).astype(np.uint64)
+    words = [[int(sum(vbytes[key, 4 * c4 + i] << (8 * i) for i in range(4)))
+              for c4 in range(d // 4)] for key in range(256)]  # v rows as stored
+    vt = np.zeros((d, 256), np.int64)  # the transposed, permuted block as bytes
+    for c4 in range(d // 4):
+        for w in range(64):
+            base, u = (w // 4) * 16, w % 4
+            r0, r1, r2, r3 = (words[key][c4] for key in (base + 2 * u, base + 2 * u + 1,
+                                                           base + 8 + 2 * u, base + 9 + 2 * u))
+            lo01, hi01 = byte_perm(r0, r1, 0x5140), byte_perm(r0, r1, 0x7362)
+            lo23, hi23 = byte_perm(r2, r3, 0x5140), byte_perm(r2, r3, 0x7362)
+            for i, word in enumerate((byte_perm(lo01, lo23, 0x5410), byte_perm(lo01, lo23, 0x7632),
+                                      byte_perm(hi01, hi23, 0x5410), byte_perm(hi01, hi23, 0x7632))):
+                for j in range(4):
+                    vt[4 * c4 + i, 4 * w + j] = word >> (8 * j) & 0xFF
+    got = np.zeros((16, d), np.int64)
+    for st in range(256 // 32):
+        # the accumulator fragments of the four 8-key tiles of this step:
+        # c[u][0, 1] = (row g, keys 8u + 2t, + 1), c[u][2, 3] the same at row g + 8
+        a = []
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            c = [[p8[r, st * 32 + 8 * u + 2 * t + e] for r in (g, g + 8) for e in (0, 1)]
+                 for u in range(4)]
+            c = [[c[u][0], c[u][1], c[u][2], c[u][3]] for u in range(4)]
+            pack = lambda x0, x1, x2, x3: int(x0 | x1 << 8 | x2 << 16 | x3 << 24)
+            a.append([pack(c[0][0], c[0][1], c[1][0], c[1][1]), pack(c[0][2], c[0][3], c[1][2], c[1][3]),
+                      pack(c[2][0], c[2][1], c[3][0], c[3][1]), pack(c[2][2], c[2][3], c[3][2], c[3][3])])
+        for n in range(d // 8):
+            b = []
+            for lane in range(32):
+                g, t = lane // 4, lane % 4
+                row = vt[n * 8 + g]
+                b.append([int(sum(int(row[st * 32 + 4 * t + j]) << (8 * j) for j in range(4))),
+                          int(sum(int(row[st * 32 + 16 + 4 * t + j]) << (8 * j) for j in range(4)))])
+            got[:, n * 8:n * 8 + 8] += mma_s8(a, b)
+    np.testing.assert_array_equal(got, p8 @ v8)

@@ -106,16 +106,39 @@ def test_msda_passes_and_chunks_match_plain(cuda, dtype, shapes, P, ppg, ch, hea
     assert rel(got, want) < TOL[dtype]
 
 
+def attention_case(B, Lq, Lk, E, dtype, dev, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(B, n, E, generator=g).to(dev, dtype) for n in (Lq, Lk, Lk))
+
+
+def split_heads(x, heads):
+    B, L, E = x.shape
+    return x.reshape(B, L, heads, E // heads).transpose(1, 2).reshape(B * heads, L, E // heads)
+
+
+def merge_heads(x, B):
+    BH, L, d = x.shape
+    return x.reshape(B, BH // B, L, d).transpose(1, 2).reshape(B, L, BH // B * d)
+
+
+@pytest.mark.parametrize("layout", ["bld", "heads"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Lq,Lk,d", [(900, 900, 32), (77, 611, 32), (130, 65, 64), (33, 40, 8)])
-def test_flash_kernel_matches_plain(cuda, dtype, Lq, Lk, d):
-    g = torch.Generator().manual_seed(1)
-    q, k, v = (torch.randn(4, n, d, generator=g).to(cuda, dtype) for n in (Lq, Lk, Lk))
+def test_flash_kernel_matches_plain(cuda, dtype, Lq, Lk, d, layout):
+    """[B, L, d] through `flash_attention`, and [B, L, heads * d] through
+    `multi_head_attention`, which reads the heads where they lie."""
+    heads = 1 if layout == "bld" else 3
+    q, k, v = attention_case(4 if heads == 1 else 2, Lq, Lk, heads * d, dtype, cuda)
     before = attn_ops.flash_attention.launches
-    got = attn_ops.flash_attention(q, k, v)
-    want = attn_ops.qkv_plain(q, k, v)
+    if heads == 1:
+        got = attn_ops.flash_attention(q, k, v)
+        want = attn_ops.qkv_plain(q, k, v)
+    else:
+        got = attn_ops.multi_head_attention(q, k, v, num_heads=heads)
+        want = merge_heads(attn_ops.qkv_plain(*(split_heads(t, heads) for t in (q, k, v))), 2)
     torch.cuda.synchronize()
     assert attn_ops.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
     assert rel(got, want) < TOL[dtype]
 
 
@@ -496,19 +519,103 @@ def test_msda_int8_kernel_matches_plain(cuda, dtype, shapes, P, ppg, ch, bs, nq)
     assert 1e-4 < rel(got, full) < 5e-2  # the int8 table is in use
 
 
+@pytest.mark.parametrize("layout", ["bld", "heads"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Lq,Lk,d", [(900, 900, 32), (77, 611, 32), (130, 256, 64), (33, 40, 64)])
-def test_flash_int8_kernel_matches_plain(cuda, dtype, Lq, Lk, d):
-    g = torch.Generator().manual_seed(1)
-    q, k, v = (torch.randn(4, n, d, generator=g).to(cuda, dtype) for n in (Lq, Lk, Lk))
+def test_flash_int8_kernel_matches_plain(cuda, dtype, Lq, Lk, d, layout):
+    heads = 1 if layout == "bld" else 3
+    q, k, v = attention_case(4 if heads == 1 else 2, Lq, Lk, heads * d, dtype, cuda)
     before = attn_ops.flash_attention_int8.launches
-    got = attn_ops.flash_attention_int8(q, k, v)
-    want = attn_ops.flash_attention_int8_plain(q, k, v)
+    if heads == 1:
+        got = attn_ops.flash_attention_int8(q, k, v)
+        want = attn_ops.flash_attention_int8_plain(q, k, v)
+        exact = attn_ops.qkv_plain(q, k, v)
+    else:
+        got = attn_ops.multi_head_attention(q, k, v, num_heads=heads, int8=True)
+        split = [split_heads(t, heads) for t in (q, k, v)]
+        want = merge_heads(attn_ops.flash_attention_int8_plain(*split), 2)
+        exact = merge_heads(attn_ops.qkv_plain(*split), 2)
     torch.cuda.synchronize()
     assert attn_ops.flash_attention_int8.launches == before + 1
     assert got.dtype == dtype and got.shape == want.shape
     assert rel(got, want) < (1e-4 if dtype == torch.float32 else 1e-2)
-    assert 1e-4 < rel(got, attn_ops.qkv_plain(q, k, v)) < 0.15  # not the float function
+    assert 1e-4 < rel(got, exact) < 0.15  # not the float function
+
+
+def on_code_boundaries(x):
+    """x with one element in eight moved onto a .5 code boundary of its
+    tensor's scale (the amax element untouched), where a division that is
+    one ulp off rounds the other way."""
+    xf = x.float()
+    amax = xf.abs().max()
+    scale = amax / 127.0
+    half = (torch.floor(xf / scale) + 0.5) * scale
+    pick = (torch.arange(x.numel(), device=x.device).reshape(x.shape) % 8 == 3) & (xf.abs() < amax)
+    return torch.where(pick, half, xf).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Lq,Lk,heads,d", [(1, 900, 900, 8, 32), (2, 77, 611, 3, 32),
+                                             (4, 130, 256, 1, 64), (1, 33, 40, 2, 64)])
+def test_int8_codes_and_scales_match_int8_operands(cuda, dtype, B, Lq, Lk, heads, d):
+    """The amax and quantize launches against `int8_operands` of the split
+    heads, on the card and on the CPU: codes and scales bit for bit, also
+    for values on .5 code boundaries."""
+    q, k, v = (on_code_boundaries(t)
+               for t in attention_case(B, Lq, Lk, heads * d, dtype, cuda, seed=5))
+    for _ in range(3):  # the amax slots alternate between calls
+        got = attn_ops.flash_int8_quantize(q, k, v, heads)
+    split = [split_heads(t, heads) for t in (q, k, v)]
+    plain = attn_ops.int8_operands(*split)
+    cpu = attn_ops.int8_operands(*(t.cpu() for t in split))
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, plain, cpu):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+def test_int8_flash_is_deterministic(cuda):
+    q, k, v = attention_case(1, 900, 900, 256, torch.float32, cuda, seed=6)
+    a = attn_ops.multi_head_attention(q, k, v, num_heads=8, int8=True)
+    b = attn_ops.multi_head_attention(q, k, v, num_heads=8, int8=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_attention_launches_on_the_device(cuda, int8):
+    """One decoder self-attention call launches the attention kernel alone
+    (floating point) or amax, quantize and attention (int8): no copy splits
+    or merges the heads."""
+    from bevformer_tensorrt_tpu_torch.tools.kernel_cases import device_kernels
+
+    q, k, v = attention_case(1, 900, 900, 256, torch.float32, cuda, seed=7)
+    names = device_kernels(lambda: attn_ops.multi_head_attention(q, k, v, num_heads=8, int8=int8))
+    assert names is not None, "the profiler saw no kernel"
+    want = ["flash_int8_amax", "flash_int8_quantize", "flash_int8_kernel"] if int8 else [
+        "flash_kernel"]
+    assert len(names) == len(want) and all(w in n for w, n in zip(want, names)), names
+
+
+@pytest.mark.parametrize("name,instruction", [("flash_attn", "HMMA"),
+                                              ("flash_attn_int8", "IMMA")])
+def test_flash_kernels_run_on_the_tensor_cores(cuda, name, instruction):
+    """The built library's SASS holds the tensor-core instruction of its
+    kernels' products (cuobjdump of the library)."""
+    import os
+    import subprocess
+
+    from bevformer_tensorrt_tpu_torch.ops import _cuda
+
+    _cuda.load(name)
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    sass = subprocess.run([os.path.join(home, "bin", "cuobjdump"), "-sass",
+                           str(_cuda.library_path(name))], capture_output=True, text=True,
+                          check=True).stdout
+    kernels = [part for part in sass.split("Function : ")[1:]
+               if "flash_kernel" in part.splitlines()[0]
+               or "flash_int8_kernel" in part.splitlines()[0]]
+    assert kernels and all(instruction in part for part in kernels)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

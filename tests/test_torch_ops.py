@@ -5,7 +5,9 @@ tensors) against `multi_scale_deformable_attn`, its unchunked reference and
 the Pallas sorted-tap kernel in interpret mode, over 1 and 4 levels, ppg 1
 and 4, with offsets that push samples past every border.  Attention: the
 port's plain version against `qkv` and the Pallas flash kernel in interpret
-mode at a ragged length.  DCNv2: the port's plain version against
+mode at a ragged length; `multi_head_attention` against the JAX one, the
+index arithmetic with which the CUDA kernels read and write the heads where
+they lie, and the int8 operands bit for bit the JAX wrapper's.  DCNv2: the port's plain version against
 `modulated_deform_conv2d(impl="jnp")` over deform groups, strides, both
 layouts, with and without bias, against the Pallas im2col kernel in interpret
 mode, against `F.conv2d` at zero offsets, and at the exact border positions
@@ -131,6 +133,93 @@ def test_multi_head_split_merge(rng):
     q, k, v = (rng.standard_normal((1, 50, 64)).astype(np.float32) for _ in range(3))
     got = multi_head_attention(*(torch.from_numpy(a) for a in (q, k, v)), num_heads=4).numpy()
     assert rel(got, jax_mha(q, k, v, num_heads=4)) < TOL
+
+
+def test_head_split_addressing_is_the_split(rng):
+    """The index arithmetic the CUDA kernels use to read the heads where they
+    lie (element (b, i, h * d + c) of q at (b * L + i) * E + h * d + c, the
+    output written the same way) and the int8 quantize launch's scatter into
+    [B * heads, L, d] codes, in numpy: the same elements as split -> merge."""
+    B, L, heads, d = 2, 7, 3, 8
+    E = heads * d
+    x = rng.standard_normal((B, L, E)).astype(np.float32)
+    split = x.reshape(B, L, heads, d).transpose(0, 2, 1, 3).reshape(B * heads, L, d)
+    flat = x.reshape(-1)
+    b, h, i, c = np.meshgrid(np.arange(B), np.arange(heads), np.arange(L), np.arange(d),
+                             indexing="ij")
+    read = flat[(b * L + i) * E + h * d + c].reshape(B * heads, L, d)  # flash_kernel's loads
+    np.testing.assert_array_equal(read, split)
+    out = np.empty(B * L * E, np.float32)
+    out[(b * L + i) * E + h * d + c] = split.reshape(B, heads, L, d)  # its stores
+    np.testing.assert_array_equal(out.reshape(B, L, E), x)
+    codes = np.empty(B * heads * L * d, np.float32)  # flash_int8_quantize, four values a word
+    for w in range(B * L * E // 4):
+        row, col4 = divmod(w, E // 4)
+        bb, ll = divmod(row, L)
+        hh, c4 = divmod(col4, d // 4)
+        dst = (((bb * heads + hh) * L + ll) * (d // 4) + c4) * 4
+        codes[dst:dst + 4] = flat[4 * w:4 * w + 4]
+    np.testing.assert_array_equal(codes.reshape(B * heads, L, d), split)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_multi_head_attention_routes(int8, rng):
+    """CPU tensors (and a wrapper swapped for its plain version) take split ->
+    plain -> merge; on CUDA the two wrappers' kernels take the heads where
+    they lie.  Against the JAX `multi_head_attention` at the decoder's 8
+    heads of 32."""
+    from bevformer_tensorrt_tpu.ops import multi_head_attention as jax_mha
+    from bevformer_tensorrt_tpu_torch.ops import attention as attn
+
+    assert set(attn._HEAD_SPLIT) == {attn.flash_attention, attn.flash_attention_int8}
+    assert attn.qkv_plain not in attn._HEAD_SPLIT
+    assert attn.flash_attention_int8_plain not in attn._HEAD_SPLIT
+    q, k, v = (rng.standard_normal((1, n, 256)).astype(np.float32) for n in (60, 75, 75))
+    got = multi_head_attention(*(torch.from_numpy(a) for a in (q, k, v)), num_heads=8,
+                               int8=int8).numpy()
+    if int8:
+        split = [torch.from_numpy(a).reshape(1, -1, 8, 32).transpose(1, 2).reshape(8, -1, 32)
+                 for a in (q, k, v)]
+        want = attn.flash_attention_int8_plain(*split).reshape(1, 8, 60, 32).transpose(1, 2)
+        np.testing.assert_array_equal(got, want.reshape(1, 60, 256).numpy())
+    else:
+        assert rel(got, jax_mha(q, k, v, num_heads=8)) < TOL
+
+
+def jax_q8(x):
+    """The JAX wrapper's quantization, as bevformer_tensorrt_tpu/ops/pallas/
+    flash_attn.py:134-143 writes it (a closure there, so restated here)."""
+    import jax.numpy as jnp
+
+    s = jnp.maximum(jnp.max(jnp.abs(x.astype(jnp.float32))), 1e-12) / 127.0
+    xi = jnp.clip(jnp.round(x.astype(jnp.float32) / s), -127, 127)
+    return np.asarray(xi.astype(jnp.int8)), s
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_int8_operands_match_jax_q8(d, rng):
+    """`int8_operands` bit for bit the JAX wrapper's codes and scales, with
+    values on .5 code boundaries (scale 2^-7 exactly: amax 127 / 128, and
+    (k + 1/2) / 128 divides to k + 1/2, which rounds half to even) and
+    random ones."""
+    from bevformer_tensorrt_tpu_torch.ops import attention as attn
+
+    def case(n):
+        x = rng.standard_normal((2, n, d)).astype(np.float32) * 0.3
+        half = (rng.integers(-126, 126, x.shape) + 0.5) / 128.0
+        x = np.where(rng.random(x.shape) < 0.5, half, x).astype(np.float32)
+        x = np.clip(x, -126.5 / 128, 126.5 / 128)
+        x.reshape(-1)[0] = 127.0 / 128
+        return x
+
+    q, k, v = case(40), case(70), case(70)
+    qi, ki, vi, scales = attn.int8_operands(*(torch.from_numpy(a) for a in (q, k, v)))
+    (jq, sq), (jk, sk), (jv, sv) = jax_q8(q), jax_q8(k), jax_q8(v)
+    for got, want in ((qi, jq), (ki, jk), (vi, jv)):
+        np.testing.assert_array_equal(got.numpy(), want)
+    want = np.asarray([sq * sk / float(d) ** 0.5, sv / 127.0], np.float32)
+    np.testing.assert_array_equal(scales.numpy(), want)
+    assert float(sq) == 2.0 ** -7
 
 
 def test_cpu_inputs_take_the_plain_path(rng):
