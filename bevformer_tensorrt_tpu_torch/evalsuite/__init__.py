@@ -1,0 +1,7 @@
+"""The nuScenes detection metric (NDS) and the conversion of detections and
+GT into its boxes."""
+from .format import detections_to_eval_boxes, gt_to_eval_boxes
+from .nds import DETECTION_CLASSES, EvalBox, evaluate_nuscenes
+
+__all__ = ["DETECTION_CLASSES", "EvalBox", "detections_to_eval_boxes", "evaluate_nuscenes",
+           "gt_to_eval_boxes"]

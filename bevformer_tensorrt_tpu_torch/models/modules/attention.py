@@ -151,7 +151,9 @@ class MSDeformableAttention3D(_DeformableAttention):
         out = self.msda(
             v, ref, off[None].expand(cams, -1, -1, -1).contiguous(),
             attn[None].expand(cams, -1, -1, -1).contiguous(), spatial_shapes)
-        return (out * bev_mask).sum(dim=0, keepdim=True)
+        # in the query's dtype, as the compacted branch: bev_mask is float32, and
+        # a promoted query would reach the next layer's kernels in two dtypes
+        return (out * bev_mask).sum(dim=0, keepdim=True).to(out.dtype)
 
 
 class SpatialCrossAttention(nn.Module):

@@ -72,6 +72,20 @@ class TemporalState:
         return can_bus, use_prev
 
 
+class Readback:
+    """Host copies of device tensors, complete once `event` has passed
+    (`BEVFormerEngine.readback`)."""
+
+    def __init__(self, host, event):
+        self._host, self._event = host, event
+
+    def result(self) -> tuple:
+        """The host tensors, after waiting for their copies."""
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host
+
+
 class BEVFormerEngine:
     """Per-frame BEVFormer inference with the recurrent BEV kept on the device.
 
@@ -115,9 +129,10 @@ class BEVFormerEngine:
     def _tensor(self, x):
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
-    @torch.inference_mode()
-    def infer_frame(self, image, can_bus, lidar2img, scene_token: Any):
-        """One frame.  Returns (outputs_classes, outputs_coords) on the device."""
+    def frame_inputs(self, image, can_bus, lidar2img, scene_token: Any):
+        """Step the temporal state for one frame and return the model's
+        positional inputs for it on the device: (image, prev_bev,
+        use_prev_bev, delta can_bus, lidar2img)."""
         if scene_token != self.state.scene_token:
             l2i = lidar2img.cpu().numpy() if torch.is_tensor(lidar2img) else lidar2img
             self._check_cam_budget(l2i)
@@ -127,12 +142,32 @@ class BEVFormerEngine:
         if prev_bev is None:
             nq = self.cfg.bev_h * self.cfg.bev_w
             prev_bev = torch.zeros((nq, 1, self.cfg.embed_dims), device=self.device)
+        return (self._tensor(image), prev_bev,
+                torch.tensor(use_prev, dtype=torch.float32, device=self.device),
+                self._tensor(delta_can_bus), self._tensor(lidar2img))
+
+    @torch.inference_mode()
+    def infer_frame(self, image, can_bus, lidar2img, scene_token: Any):
+        """One frame.  Returns (outputs_classes, outputs_coords) on the device."""
         bev_embed, classes, coords = self.model(
-            self._tensor(image), prev_bev,
-            torch.tensor(use_prev, dtype=torch.float32, device=self.device),
-            self._tensor(delta_can_bus), self._tensor(lidar2img))
+            *self.frame_inputs(image, can_bus, lidar2img, scene_token))
         self.state.prev_bev = bev_embed
         return classes, coords
+
+    def readback(self, *tensors: torch.Tensor) -> Readback:
+        """Start copying a frame's outputs to the host and return at once.
+        On the card each tensor is copied without blocking into pinned host
+        memory, queued behind the work that computes it, and a CUDA event is
+        recorded after the copies; `Readback.result()` waits for that event
+        only.  A caller that starts frame t's readback before it dispatches
+        frame t+1 can decode frame t on the host while frame t+1 runs."""
+        if self.device.type != "cuda":
+            return Readback(tuple(t.cpu() for t in tensors), None)
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+            t, non_blocking=True) for t in tensors)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return Readback(host, event)
 
     def calibrate(self, frames, method: str = "entropy",
                   percentile: float = 99.99) -> CalibrationResult:

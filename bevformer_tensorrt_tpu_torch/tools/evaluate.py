@@ -1,0 +1,174 @@
+"""Evaluate BEVFormer on a nuScenes-layout set: NDS / mAP and FPS
+(port of `tools/bevformer/evaluate.py`).
+
+    python -m bevformer_tensorrt_tpu_torch.tools.evaluate tiny --infos <infos.pkl>
+        [--data-root DIR] [--checkpoint upstream.pth] [--dtype bfloat16]
+        [--quant-scales scales.npz [--quant int8] [--quant-exclude PATTERN ...]]
+        [--limit N] [--cam-budget 1.0] [--device cuda]
+
+The loader (`data/nuscenes.py`) feeds `BEVFormerEngine`, the NMS-free
+decode follows, then `evaluate_nuscenes`.  The last line of stdout is one
+JSON object of the rounded metrics with `fps` and `latency_ms` (the first
+and last frames' latencies dropped, the reference's convention).
+
+`--checkpoint` is an upstream-layout state_dict (`.pth`); without it the
+weights are seeded.  `--quant-scales` is a `CalibrationResult` `.npz` from
+`tools/calibrate.py`, with its `.policy.json` beside it.  Runs on CUDA
+unless `--device cpu` is given.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Sequence
+
+import numpy as np
+
+from ..configs import bevformer as configs
+from ..core.nms_free_coder import NMSFreeCoder
+from ..data.nuscenes import IMG_NORM_CAFFE, IMG_NORM_PYTORCH, NuScenesFrames
+from ..evalsuite import detections_to_eval_boxes, evaluate_nuscenes, gt_to_eval_boxes
+from ..quant.fold import attach_quant_scales
+from ..quant.observers import CalibrationResult
+from ..quant.policy import load_policy
+from ..runtime.engine import BEVFormerEngine
+from ..runtime.torch_import import load_bevformer_checkpoint, load_torch_checkpoint
+
+MODELS = ("micro", "tiny", "small", "base")
+
+
+def image_norm(model: str):
+    """tiny is the pytorch-style R50; the R101 configs (and micro) are caffe-style."""
+    return IMG_NORM_PYTORCH if model == "tiny" else IMG_NORM_CAFFE
+
+
+def checkpoint_state_dict(cfg, path: str):
+    """The port's state_dict from an upstream-layout checkpoint file."""
+    return load_bevformer_checkpoint(cfg, load_torch_checkpoint(path))
+
+
+@dataclasses.dataclass
+class EvalRun:
+    """What one pass of `eval_loop` produced, in frame order."""
+
+    detections: List[Dict[str, np.ndarray]] = dataclasses.field(default_factory=list)
+    gt_boxes: list = dataclasses.field(default_factory=list)
+    pred_boxes: list = dataclasses.field(default_factory=list)
+    latencies: List[float] = dataclasses.field(default_factory=list)  # seconds
+
+    def metrics(self) -> Dict[str, float]:
+        metrics = evaluate_nuscenes(self.gt_boxes, self.pred_boxes, verbose=True)
+        lat = self.latencies[1:-1] if len(self.latencies) > 2 else self.latencies
+        metrics["fps"] = 1.0 / float(np.mean(lat))
+        metrics["latency_ms"] = float(np.mean(lat) * 1e3)
+        return metrics
+
+
+def eval_loop(engine: BEVFormerEngine, frames: NuScenesFrames, indices: Sequence[int],
+              pipelined: bool = True) -> EvalRun:
+    """Run the frames through the engine from a fresh temporal state, decode
+    and convert them.  A one-thread prefetcher loads frame t+1 while frame t
+    runs.  Pipelined, frame t's readback is started right after its
+    dispatch and it is decoded after frame t+1 is dispatched, so the
+    host's decode overlaps the card's next frame; serial, each frame is
+    read back and decoded before the next is dispatched.  Both give the
+    same detections.  A latency is the time between two decoded frames."""
+    coder = NMSFreeCoder(num_classes=engine.cfg.num_classes)
+    run = EvalRun()
+    n = len(indices)
+
+    def finish(f, readback):
+        classes, coords = readback.result()
+        det = coder.decode(classes, coords)[0]
+        run.detections.append(det)
+        run.pred_boxes.extend(detections_to_eval_boxes(f.sample_token, det))
+        run.gt_boxes.extend(gt_to_eval_boxes(f.sample_token, f.gt_boxes, f.gt_labels))
+
+    engine.reset()
+    pending = None
+    with ThreadPoolExecutor(max_workers=1) as prefetch:
+        t_last = time.perf_counter()
+        fut = prefetch.submit(frames.frame, indices[0]) if n else None
+        for step in range(n):
+            f = fut.result()
+            if step + 1 < n:
+                fut = prefetch.submit(frames.frame, indices[step + 1])
+            classes, coords = engine.infer_frame(f.image, f.can_bus, f.lidar2img, f.scene_token)
+            current = (f, engine.readback(classes, coords))
+            if not pipelined:
+                pending, current = current, None
+            if pending is not None:
+                finish(*pending)
+                now = time.perf_counter()
+                run.latencies.append(now - t_last)
+                t_last = now
+            pending = current
+            if step % 100 == 0:
+                print(f"[{step}/{n}]", file=sys.stderr)
+        if pending is not None:
+            finish(*pending)
+            run.latencies.append(time.perf_counter() - t_last)
+    return run
+
+
+@dataclasses.dataclass
+class EvalResult:
+    metrics: Dict[str, float]
+    run: EvalRun
+    engine: BEVFormerEngine
+    frames: NuScenesFrames
+    indices: List[int]
+
+
+def main(argv=None) -> EvalResult:
+    """Parse `argv`, evaluate, print the metrics line; the result is
+    returned for callers that drive the tool from Python."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("model", choices=MODELS)
+    ap.add_argument("--infos", required=True)
+    ap.add_argument("--data-root", default=None)
+    ap.add_argument("--checkpoint", default=None, help="upstream-layout state_dict (.pth)")
+    ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
+    ap.add_argument("--quant-scales", default=None,
+                    help="CalibrationResult .npz from tools/calibrate.py")
+    ap.add_argument("--quant", default="qdq", choices=("qdq", "int8"),
+                    help="with --quant-scales: 'qdq' simulates quantization at the QDQ "
+                         "sites, 'int8' runs the int8 products and kernels")
+    ap.add_argument("--quant-exclude", action="append", default=None,
+                    help="site pattern kept in floating point (repeatable); default: the "
+                         "policy saved beside --quant-scales; '' asks for none")
+    ap.add_argument("--limit", type=int, default=None)
+    ap.add_argument("--cam-budget", type=float, default=1.0,
+                    help="fraction of BEV queries kept per camera (1.0 = exact)")
+    ap.add_argument("--device", default=None, help="default: cuda (raises without one)")
+    args = ap.parse_args(argv)
+
+    quant, exclude = False, ()
+    if args.quant_scales:
+        quant = "int8" if args.quant == "int8" else True
+        exclude = (tuple(p for p in args.quant_exclude if p) if args.quant_exclude is not None
+                   else load_policy(args.quant_scales))
+        if exclude:
+            print(f"mixed precision: excluding {exclude}", file=sys.stderr)
+    cfg = getattr(configs, f"bevformer_{args.model}")(
+        dtype=args.dtype, quant=quant, cam_budget=args.cam_budget, quant_exclude=exclude)
+    state_dict = checkpoint_state_dict(cfg, args.checkpoint) if args.checkpoint else None
+    engine = BEVFormerEngine(cfg, state_dict=state_dict, device=args.device)
+    if args.quant_scales:
+        attach_quant_scales(engine.model, CalibrationResult.load(args.quant_scales).scales)
+    frames = NuScenesFrames(args.infos, args.data_root, img_norm=image_norm(args.model),
+                            target_hw=(cfg.img_h, cfg.img_w))
+    indices = list(range(len(frames)))[:args.limit]
+
+    run = eval_loop(engine, frames, indices)
+    metrics = run.metrics()
+    print(json.dumps({k: round(float(v), 4) for k, v in metrics.items()}))
+    return EvalResult(metrics, run, engine, frames, indices)
+
+
+if __name__ == "__main__":
+    main()

@@ -2,13 +2,20 @@
 
     python -m bevformer_tensorrt_tpu_torch.tools.path_diff [--model base]
         [--dtype float32] [--frames 2] [--quant none] [--exclude PATTERN ...]
-        [--out FILE]
+        [--infos <infos.pkl> [--data-root DIR]] [--offset-scale 1.0] [--out FILE]
 
 Runs the same synthetic frames (one scene, so the later frames are temporal)
 through `BEVFormerEngine` on the card several times: with every kernel
 wrapper swapped for its plain PyTorch version (the reference), the same
 again (what the atomic adds of the camera scatter change from run to run),
-with exactly one op on its CUDA kernel, and with all on their kernels.
+the same with every pixel scaled by (1 + 1e-7 * a standard normal) (how
+far the frames' own conditioning lets the outputs move), with exactly one
+op on its CUDA kernel, and with all on their kernels.  With `--infos` the
+frames are the first of a nuScenes-layout set, read by the loader with the
+model's image norm, at `--cam-budget 1.0` as `tools/evaluate.py` runs them;
+`--offset-scale` multiplies the seeded DCN offset convs' weights (the
+random R101-DCN is chaotic on caffe-style images with the offset convs as
+drawn).
 With `--quant int8` the model is calibrated first (`max`, over the same
 frames) and the int8 kernels are on the path: the product, the MSDA value
 tables, flash attention and, on a DCN backbone, the DCN op's int8 table
@@ -29,13 +36,17 @@ import numpy as np
 import torch
 
 from ..configs import bevformer as configs
+from ..data.nuscenes import NuScenesFrames
+from ..models.backbones.resnet import DeformConv2d
 from ..ops import attention as attn_ops
 from ..ops import dcn as dcn_ops
 from ..ops import int8_matmul as int8_ops
 from ..ops import msda as msda_ops
 from ..runtime.engine import BEVFormerEngine
 from ..runtime.synthetic import synthetic_frames
+from .evaluate import image_norm
 
+IMAGE_NOISE = 1e-7  # relative, per pixel
 
 
 def dcn_float_plain(x, offset, mask, weight, bias=None, stride=1, padding=1, dilation=1,
@@ -124,6 +135,20 @@ def compare(got, want):
     }
 
 
+def loader_frames(cfg, model, infos, data_root, n):
+    frames = NuScenesFrames(infos, data_root, img_norm=image_norm(model),
+                            target_hw=(cfg.img_h, cfg.img_w))
+    return [dict(image=f.image, can_bus=f.can_bus, lidar2img=f.lidar2img,
+                 scene_token=f.scene_token) for f in map(frames.frame, range(n))]
+
+
+def nudged(frames, seed=1):
+    """The frames with every pixel scaled by (1 + IMAGE_NOISE * a standard normal)."""
+    rng = np.random.default_rng(seed)
+    return [dict(f, image=(f["image"] * (1 + IMAGE_NOISE * rng.standard_normal(
+        f["image"].shape))).astype(np.float32)) for f in frames]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="base", choices=("tiny", "small", "base"))
@@ -132,6 +157,10 @@ def main(argv=None):
     ap.add_argument("--quant", default="none", choices=tuple(QUANT))
     ap.add_argument("--exclude", nargs="*", default=None,
                     help="quant policy patterns; default: the config's")
+    ap.add_argument("--infos", default=None, help="loader frames from this set")
+    ap.add_argument("--data-root", default=None)
+    ap.add_argument("--offset-scale", type=float, default=1.0,
+                    help="multiplies the DCN offset convs' seeded weights")
     ap.add_argument("--out", help="also write the errors as JSON to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -141,10 +170,17 @@ def main(argv=None):
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60,
                           check=True).stdout.strip().splitlines()[0]
+    over = dict(cam_budget=1.0) if args.infos else {}
     cfg = getattr(configs, f"bevformer_{args.model}")(
-        dtype=args.dtype, **quant_overrides(args.quant, args.exclude))
+        dtype=args.dtype, **quant_overrides(args.quant, args.exclude), **over)
     engine = BEVFormerEngine(cfg, seed=0)
-    frames = synthetic_frames(cfg, np.random.default_rng(0), ["scene"] * args.frames)
+    with torch.no_grad():
+        for m in engine.model.modules():
+            if isinstance(m, DeformConv2d):
+                m.conv_offset.weight.mul_(args.offset_scale)
+    frames = (loader_frames(cfg, args.model, args.infos, args.data_root, args.frames)
+              if args.infos else
+              synthetic_frames(cfg, np.random.default_rng(0), ["scene"] * args.frames))
     if cfg.quant:
         engine.calibrate(frames, method="max")
     with plain_versions():
@@ -152,14 +188,17 @@ def main(argv=None):
     runs = {}
     with plain_versions():
         runs["all plain, again"] = compare(run_frames(engine, frames), reference)
+        runs[f"all plain, images x (1 + {IMAGE_NOISE:g} noise)"] = compare(
+            run_frames(engine, nudged(frames)), reference)
     # the int8 kernels are on the path only under quant="int8"
     for op in [n for n in WRAPPERS if cfg.quant == "int8" or "int8" not in n]:
         with plain_versions([n for n in WRAPPERS if n != op]):
             runs[f"only {op} on its kernel"] = compare(run_frames(engine, frames), reference)
     runs["all kernels"] = compare(run_frames(engine, frames), reference)
 
-    print(f"{card}: {args.model} {args.dtype} quant={args.quant}, {args.frames} frames, "
-          f"worst relative error against the all-plain run")
+    print(f"{card}: {args.model} {args.dtype} quant={args.quant}, {args.frames} "
+          f"{'loader' if args.infos else 'synthetic'} frames, offset convs x "
+          f"{args.offset_scale:g}, worst relative error against the all-plain run")
     for what, err in runs.items():
         print(f"{what}:")
         print(f"  bev_embed max {err['bev_embed']['max']:.3e} rms {err['bev_embed']['rms']:.3e}")
@@ -170,7 +209,8 @@ def main(argv=None):
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(dict(card=card, model=args.model, dtype=args.dtype, quant=args.quant,
-                           frames=args.frames, runs=runs), fh, indent=1)
+                           frames=args.frames, infos=args.infos,
+                           offset_scale=args.offset_scale, runs=runs), fh, indent=1)
 
 
 if __name__ == "__main__":

@@ -72,10 +72,12 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 34
+    assert int(res.stdout.split()[-1]) >= 55
     for module in ("quant.qdq", "quant.calibrate", "quant.fold", "ops.int8_matmul",
                    "tools.calibrate", "ops.gather_probe", "runtime.torch_import",
-                   "tools.kernel_bench", "tools.kernel_cases"):
+                   "tools.kernel_bench", "tools.kernel_cases", "data.nuscenes",
+                   "data.transforms", "data.sampler", "native", "evalsuite.nds",
+                   "evalsuite.format", "tools.evaluate"):
         assert os.path.exists(os.path.join(REPO, "bevformer_tensorrt_tpu_torch",
                                            *module.split(".")) + ".py"), module
 
@@ -337,6 +339,21 @@ def test_plain_versions_swap_and_restore():
     assert err["bev_embed"]["max"] == pytest.approx(0.5)
     assert [e["max"] for e in err["classes"]] == [0.0, 0.0]
     assert [e["max"] for e in err["coords"]] == pytest.approx([0.0, 2.0])
+
+
+def test_path_diff_nudges_only_the_pixels():
+    """tools/path_diff.py's conditioning run: every pixel scaled by
+    (1 + 1e-7 * a standard normal), the rest of the frame as it was."""
+    from bevformer_tensorrt_tpu_torch.tools.path_diff import IMAGE_NOISE, nudged
+
+    image = np.random.default_rng(0).uniform(-150, 150, (2, 3, 8, 8)).astype(np.float32)
+    frame = dict(image=image, can_bus=np.arange(18.0), scene_token="s")
+    (got,) = nudged([frame])
+    assert got["image"].dtype == np.float32 and got["image"].shape == image.shape
+    change = np.abs(got["image"] / image - 1)
+    assert 0 < change.max() < 10 * IMAGE_NOISE and (change > 0).mean() > 0.5
+    assert got["can_bus"] is frame["can_bus"] and got["scene_token"] == "s"
+    assert np.array_equal(nudged([frame])[0]["image"], got["image"])  # seeded
 
 
 def test_library_name_hashes_the_sources_it_includes(tmp_path, monkeypatch):

@@ -485,7 +485,7 @@ def test_calibrate_tool_writes_scales_and_policy(tmp_path):
     from bevformer_tensorrt_tpu_torch.tools import calibrate as tool
 
     out = str(tmp_path / "micro_scales.npz")
-    tool.main(["--out", out, "--model", "micro", "--frames", "2", "--method", "max",
+    tool.main(["micro", "--out", out, "--frames", "2", "--method", "max",
                "--device", "cpu"])
     result = CalibrationResult.load(out)
     assert result.method == "max" and len(result.scales) == 132

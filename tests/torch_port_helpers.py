@@ -2,6 +2,9 @@
 flax variables for a module, the relative-error measure, and the two-frame
 comparison of the two packages' engines."""
 import functools
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -152,3 +155,16 @@ def check_two_frames(case, tol, what):
         for name, g, w in pairs:
             assert tuple(g.shape) == np.shape(w), (what, i, name)
             assert rel(g.numpy(), np.asarray(w)) < tol, (what, i, name)
+
+
+SYNTH_INFOS = "nuscenes_infos_synthetic.pkl"
+
+
+def make_synthetic_set(out: Path, frames: int = 4) -> Path:
+    """A nuScenes-layout set at micro size from the repo's generator (seed
+    0): `frames` frames, 2 per scene, 2 cameras of 96x160."""
+    repo = Path(__file__).resolve().parents[1]
+    subprocess.run([sys.executable, str(repo / "tools/make_synthetic_nuscenes.py"), str(out),
+                    "--frames", str(frames), "--cams", "2", "--width", "160", "--height", "96"],
+                   check=True, capture_output=True, timeout=120)
+    return out
