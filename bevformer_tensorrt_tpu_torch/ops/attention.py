@@ -18,6 +18,11 @@ attention).
 each head where it lies and write the merged output, so nothing is copied;
 on the CPU (and whenever a wrapper has been swapped for its plain version)
 it splits the heads, runs the plain version and merges them.
+
+On CUDA every launch is differentiable through `plain_vjp.with_plain_vjp`:
+the backward is the VJP of `qkv_plain` on the saved q, k and v
+(`ops/attention.py:80-119` of the JAX package), for the int8 op too
+(straight-through: the int8 rounding is not differentiated).
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import ctypes
 import torch
 
 from . import _cuda
+from .plain_vjp import with_plain_vjp
 
 FLASH_HEAD_DIMS = (8, 32, 64)  # micro; tiny/small/base; the wider flash width
 INT8_FLASH_HEAD_DIMS = (32, 64)
@@ -103,21 +109,33 @@ def multi_head_attention(query, key, value, num_heads: int, int8: bool = False):
     out, through `flash_attention` (or, with `int8`, `flash_attention_int8`).
     On CUDA the kernel takes the heads where they lie; otherwise the heads
     are split into the batch, the op runs and the heads are merged."""
-    B, q_len, E = query.shape
-    kv_len = key.shape[1]
-    hd = E // num_heads
     impl = flash_attention_int8 if int8 else flash_attention  # looked up now: may be swapped
     head_split = _HEAD_SPLIT.get(impl)
     if query.is_cuda and head_split is not None:
         return head_split(query.contiguous(), key.contiguous(), value.contiguous(),
                           heads=num_heads)
+    return _split_heads(impl, query, key, value, num_heads)
+
+
+def _split_heads(impl, query, key, value, heads: int):
+    """`impl` on [B, len, heads * d] tensors: heads split into the batch,
+    the op run, the heads merged."""
+    B, q_len, E = query.shape
+    kv_len = key.shape[1]
+    hd = E // heads
 
     def split(x, L):
-        return x.reshape(B, L, num_heads, hd).transpose(1, 2).reshape(B * num_heads, L, hd)
+        return x.reshape(B, L, heads, hd).transpose(1, 2).reshape(B * heads, L, hd)
 
     out = impl(split(query, q_len).contiguous(), split(key, kv_len).contiguous(),
                split(value, kv_len).contiguous())
-    return out.reshape(B, num_heads, q_len, hd).transpose(1, 2).reshape(B, q_len, E)
+    return out.reshape(B, heads, q_len, hd).transpose(1, 2).reshape(B, q_len, E)
+
+
+def qkv_heads_plain(query, key, value, heads: int):
+    """`qkv_plain` on [B, len, heads * d] (heads split and merged): the
+    function whose VJP is the gradient of every flash launch."""
+    return _split_heads(qkv_plain, query, key, value, heads)
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -183,10 +201,16 @@ def _launch_flash(query, key, value, out, heads, geo):
     _cuda.check(lib, err, "flash kernel launch")
 
 
+def _flash_heads(query, key, value, heads=1):
+    """The floating-point kernel on [B, L, heads * d], differentiable."""
+    return with_plain_vjp(lambda q, k, v: _flash_cuda(q, k, v, heads), qkv_heads_plain,
+                          (query, key, value), (heads,))
+
+
 def flash_attention(query, key, value):
     """softmax(q k^T / sqrt(d)) v; query [B, Lq, d], key/value [B, Lk, d]."""
     if query.is_cuda:
-        return _flash_cuda(query, key, value)
+        return _flash_heads(query, key, value)
     if query.device.type != "cpu":
         raise ValueError(f"flash_attention: unsupported device {query.device}")
     return qkv_plain(query, key, value)
@@ -344,10 +368,11 @@ def flash_attention_int8(query, key, value, operands=None):
     per-tensor int8 quantization of q, k, v, int8 products, float32 online
     softmax.  query [B, Lq, d], key/value [B, Lk, d], d in (32, 64).
     `operands` takes `int8_operands(query, key, value)` made ahead of time
-    (to time the attention kernel apart from the quantization); CUDA only."""
+    (to time the attention kernel apart from the quantization); CUDA only.
+    The kernel's gradient is `qkv_plain`'s (straight-through)."""
     if query.is_cuda:
-        return _flash_int8_cuda(query.contiguous(), key.contiguous(), value.contiguous(),
-                                operands)
+        return _flash_int8_heads(query.contiguous(), key.contiguous(), value.contiguous(),
+                                 operands=operands)
     if query.device.type != "cpu":
         raise ValueError(f"flash_attention_int8: unsupported device {query.device}")
     return flash_attention_int8_plain(query, key, value)
@@ -355,6 +380,13 @@ def flash_attention_int8(query, key, value, operands=None):
 
 flash_attention_int8.launches = 0
 
+
+def _flash_int8_heads(query, key, value, heads=1, operands=None):
+    """The int8 op on [B, L, heads * d], differentiable straight through."""
+    return with_plain_vjp(lambda q, k, v: _flash_int8_cuda(q, k, v, operands, heads),
+                          qkv_heads_plain, (query, key, value), (heads,))
+
+
 # the wrappers whose kernels take [B, L, heads * d] as it lies (a plain
 # version swapped in for a wrapper is not here, so it takes the split path)
-_HEAD_SPLIT = {flash_attention: _flash_cuda, flash_attention_int8: _flash_int8_cuda}
+_HEAD_SPLIT = {flash_attention: _flash_heads, flash_attention_int8: _flash_int8_heads}

@@ -21,6 +21,13 @@ raises, by activation dtype (a rule fixed ahead of any failure):
   keeps it.
 Any `groups` and `deform_groups`, NCHW and NHWC, on both devices.
 
+Every launch is differentiable through `plain_vjp.with_plain_vjp`, as the
+JAX package's custom_vjp around its kernel (`ops/dcn.py:257-280`): the
+im2col kernel's backward is the VJP of `deform_im2col_plain` (the product
+after it is `torch.matmul`, which autograd covers), the fused kernel's the
+VJP of `modulated_deform_conv2d_plain` in float32, from the floating-point
+map also for the int8 table (straight-through).
+
 `quant="int8"` samples from an int8 copy of the feature map (the JAX
 package's `packed="int8"` gather table): one dynamic scale per (image, group
 of 64 or 32 consecutive channels), `quantize_dcn_table`.  On the card that
@@ -46,6 +53,7 @@ from typing import Tuple
 import torch
 
 from . import _cuda
+from .plain_vjp import with_plain_vjp
 
 LAYOUTS = ("NCHW", "NHWC")
 
@@ -435,8 +443,9 @@ def deform_im2col(x, offset, mask, kernel_size: Tuple[int, int], stride=1, paddi
     x.dtype.  x, offset and mask are contiguous CUDA tensors of one dtype
     (float32 or bfloat16) in `layout`; the kernel reads either layout through
     strides, so no input is copied."""
-    return _launch_im2col(x, None, offset, mask, kernel_size, stride, padding, dilation,
-                          deform_groups, layout)
+    static = (tuple(kernel_size), stride, padding, dilation, deform_groups, layout)
+    return with_plain_vjp(lambda x, o, m: _launch_im2col(x, None, o, m, *static),
+                          deform_im2col_plain, (x, offset, mask), static)
 
 
 deform_im2col.launches = 0
@@ -571,10 +580,23 @@ def _dcn_cuda(x, offset, mask, weight, bias, stride, padding, dilation, groups, 
     chip_smoke.py, which time it against that route."""
     if x.dtype == torch.float32 and not int8_table:
         raise ValueError("dcn kernel: a float32 map takes the im2col route")
-    out, launch = fused_launcher(x, offset, mask, weight, bias, stride, padding, dilation,
-                                 groups, dg, layout, int8_table, wmat)
-    launch()
-    return out
+
+    def launch(x, offset, mask, weight, bias):
+        out, run = fused_launcher(x, offset, mask, weight, bias, stride, padding, dilation,
+                                  groups, dg, layout, int8_table, wmat)
+        run()
+        return out
+
+    return with_plain_vjp(launch, _plain_float32, (x, offset, mask, weight, bias),
+                          (stride, padding, dilation, groups, dg, layout))
+
+
+def _plain_float32(x, offset, mask, weight, bias, *static):
+    """The floating-point plain op on float32 copies of its inputs: the
+    fused kernel's gradient (the JAX backward's float32 VJP of `_dcn_xla`)."""
+    return modulated_deform_conv2d_plain(x.float(), offset.float(), mask.float(),
+                                         weight.float(), None if bias is None else bias.float(),
+                                         *static)
 
 
 def fused_launcher(x, offset, mask, weight, bias, stride, padding, dilation, groups, dg, layout,
@@ -756,7 +778,8 @@ def modulated_deform_conv2d_int8(x, offset, mask, weight, bias=None, stride=1, p
     `int8_table_eligible` takes (else it raises): the same arguments, x
     float32 or bfloat16.  CUDA tensors launch the fused kernel with the
     codes computed at the gather; CPU tensors run the plain op under
-    quant="int8"."""
+    quant="int8".  The kernel's gradient is the float32 plain op's on the
+    floating-point map (straight-through)."""
     Cin = x.shape[3 if layout == "NHWC" else 1] if x.dim() == 4 else 0
     if not int8_table_eligible(Cin, groups, deform_groups):
         raise ValueError(f"dcn: the int8 table takes groups 1, deform_groups 1 and Cin % 32 "

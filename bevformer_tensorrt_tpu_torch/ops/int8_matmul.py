@@ -11,6 +11,10 @@ launches the kernel of `csrc/int8_gemm.cu` or raises.
 The kernel runs in one of the tile configurations of `GEMM_CONFIGS`, which
 `gemm_config` picks from the shape alone; the operands reach it through TMA
 tensor maps whose arguments `tensor_map_args` states and checks.
+
+The product has no gradient (nor has the JAX package's): with grad mode on,
+an input that requires grad makes the call raise on every device, rather
+than return a result cut off from the graph.
 """
 from __future__ import annotations
 
@@ -146,6 +150,10 @@ def int8_matmul(x, w, x_scale, w_scale, out_dtype=torch.float32):
     Returns:
       [M, N] in `out_dtype`: int32-exact sums times `x_scale * w_scale[n]`.
     """
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in (x, w, x_scale, w_scale)):
+        raise RuntimeError("int8_matmul has no gradient: an input requires grad (run the int8 "
+                           "tier under torch.no_grad(), or train through the QDQ tier)")
     if x.is_cuda:
         return _int8_matmul_cuda(x, w, x_scale, w_scale, out_dtype)
     if x.device.type != "cpu":

@@ -7,7 +7,10 @@ and returns the weighted sum.
 
 `multi_scale_deformable_attn` is the public function.  For CPU tensors it
 runs `multi_scale_deformable_attn_plain`; for CUDA tensors it launches the
-kernel of `csrc/msda.cu` or raises.
+kernel of `csrc/msda.cu` or raises.  On CUDA the launch is differentiable
+through `plain_vjp.with_plain_vjp`: the backward is the VJP of the plain
+version recomputed from the saved inputs, as the JAX package's custom_vjp
+around its kernel (`ops/msda.py:718-744`) does.
 
 `multi_scale_deformable_attn_int8` is the same op from an int8 value table
 (the JAX package's `packed="int8"`): the value is quantized with one dynamic
@@ -16,6 +19,7 @@ rows, and the scale multiplies the weighted sum once.  By linearity that is
 the floating-point op on the dequantized value, which is what its plain
 version computes.  The JAX kernel also rounds its combined weights to
 bfloat16, which the port does not: the two differ by up to 2^-8 of a weight.
+Its gradient is the floating-point plain version's (straight-through).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from . import _cuda
+from .plain_vjp import with_plain_vjp
 
 Shapes = Tuple[Tuple[int, int], ...]
 
@@ -271,6 +276,15 @@ def _msda_cuda(value, reference_points, sampling_offsets, attention_weights,
     return out
 
 
+def _msda_kernel(value, reference_points, sampling_offsets, attention_weights,
+                 spatial_shapes: Shapes, int8_table):
+    """The kernel launch, differentiable through the float plain version."""
+    return with_plain_vjp(
+        lambda *t: _msda_cuda(*t, spatial_shapes, int8_table=int8_table),
+        multi_scale_deformable_attn_plain,
+        (value, reference_points, sampling_offsets, attention_weights), (spatial_shapes,))
+
+
 def multi_scale_deformable_attn(value, reference_points, sampling_offsets,
                                 attention_weights, spatial_shapes: Shapes):
     """Fused multi-scale deformable attention.
@@ -286,8 +300,8 @@ def multi_scale_deformable_attn(value, reference_points, sampling_offsets,
       [bs, num_q, heads*ch] in value.dtype.
     """
     if value.is_cuda:
-        return _msda_cuda(value, reference_points, sampling_offsets, attention_weights,
-                          tuple(spatial_shapes))
+        return _msda_kernel(value, reference_points, sampling_offsets, attention_weights,
+                            tuple(spatial_shapes), None)
     if value.device.type != "cpu":
         raise ValueError(f"msda: unsupported device {value.device}")
     return multi_scale_deformable_attn_plain(value, reference_points, sampling_offsets,
@@ -303,10 +317,11 @@ def multi_scale_deformable_attn_int8(value, reference_points, sampling_offsets,
     (float32 or bfloat16, same arguments) is quantized per (batch, head)
     here, and the kernel gathers the int8 rows.  `table` takes the
     (int8, scale) pair of `quantize_value_table(value)` made ahead of time
-    (to time the kernel apart from the quantization); CUDA only."""
+    (to time the kernel apart from the quantization); CUDA only.  The
+    kernel's gradient is the floating-point op's (straight-through)."""
     if value.is_cuda:
-        return _msda_cuda(value, reference_points, sampling_offsets, attention_weights,
-                          tuple(spatial_shapes), int8_table=True if table is None else table)
+        return _msda_kernel(value, reference_points, sampling_offsets, attention_weights,
+                            tuple(spatial_shapes), True if table is None else table)
     if value.device.type != "cpu":
         raise ValueError(f"msda: unsupported device {value.device}")
     return multi_scale_deformable_attn_int8_plain(value, reference_points, sampling_offsets,

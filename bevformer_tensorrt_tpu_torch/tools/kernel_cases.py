@@ -412,3 +412,82 @@ def gather_blend_library(table, idx, w):
         return out.reshape(B, nq, ch)
 
     return call
+
+
+# ---- gradients: every kernel op through its autograd Function --------------
+
+# op: (the wrapper whose launch count the op moves, the table of its shapes)
+GRAD_OPS = {
+    "msda": ("multi_scale_deformable_attn", "msda"),
+    "msda_int8": ("multi_scale_deformable_attn_int8", "msda"),
+    "flash": ("flash_attention", "flash"),
+    "flash_int8": ("flash_attention_int8", "flash"),
+    "dcn_im2col": ("deform_im2col", "dcn"),            # float32 maps: the im2col route
+    "dcn_fused": ("modulated_deform_conv2d", "dcn"),   # bfloat16 maps: the fused kernel
+    "dcn_fused_int8": ("modulated_deform_conv2d_int8", "dcn"),  # the int8 table
+}
+GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}  # relative, per input's gradient
+
+
+def grad_case(op, spec, gen, dev):
+    """(kernel, plain, inputs, dtype) for one op of GRAD_OPS at a row of
+    MSDA_SHAPES, FLASH_SHAPES or DCN_SHAPES: `kernel(*inputs)` is the call the
+    model makes (flash: the heads read where they lie, [1, L, B * d]), and
+    `plain(*inputs)` the function whose autograd the Function's backward
+    must equal: the floating-point plain version, in float32 for the fused
+    DCN kernel, and straight through for the int8 ones."""
+    from ..ops import attention as attn_ops
+    from ..ops import dcn as dcn_ops
+    from ..ops import msda as msda_ops
+
+    if GRAD_OPS[op][1] == "msda":
+        inputs, shapes = msda_inputs(spec, torch.float32, gen, dev)
+        wrapper = (msda_ops.multi_scale_deformable_attn_int8 if op == "msda_int8"
+                   else msda_ops.multi_scale_deformable_attn)
+        return (lambda *t: wrapper(*t, shapes),
+                lambda *t: msda_ops.multi_scale_deformable_attn_plain(*t, shapes),
+                inputs, torch.float32)
+    if GRAD_OPS[op][1] == "flash":
+        B = spec[0]
+        inputs = [heads_layout(t) for t in flash_inputs(spec, torch.float32, gen, dev)]
+        return (lambda q, k, v: attn_ops.multi_head_attention(q, k, v, B, int8=op == "flash_int8"),
+                lambda q, k, v: attn_ops.qkv_heads_plain(q, k, v, B), inputs, torch.float32)
+    dtype = torch.bfloat16 if op == "dcn_fused" else torch.float32
+    x, off, mask, weight, geo = dcn_inputs(spec, dtype, gen, dev)
+    quant = "int8" if op == "dcn_fused_int8" else False
+    kw = dict(geo, groups=spec[9])
+
+    def plain(x, off, mask, weight):
+        return dcn_ops.modulated_deform_conv2d_plain(x.float(), off.float(), mask.float(),
+                                                     weight, None, **kw).to(x.dtype)
+
+    return (lambda x, off, mask, weight: dcn_ops.modulated_deform_conv2d(
+                x, off, mask, weight, None, quant=quant, **kw),
+            plain, [x, off, mask, weight], dtype)
+
+
+def grad_check(kernel, plain, inputs, gen):
+    """Gradients of <kernel(*inputs), cot> through the kernel's autograd
+    Function against those of <plain(*inputs), cot>, with one seeded
+    cotangent, every floating-point input requiring grad.  Returns the
+    kernel's output and each input's relative gradient error (max |a - b| /
+    max |b|); raises where the kernel's output has no grad_fn or a gradient
+    is missing or not finite."""
+    def run(fn):
+        ins = [t.detach().clone().requires_grad_(t.is_floating_point()) for t in inputs]
+        out = fn(*ins)
+        return out, ins
+
+    out, ins = run(kernel)
+    if out.grad_fn is None:
+        raise AssertionError("the kernel's output has no grad_fn")
+    cot = torch.randn(out.shape, generator=gen).to(out.device, out.dtype)
+    got = torch.autograd.grad(out, ins, cot)
+    ref, ref_ins = run(plain)
+    want = torch.autograd.grad(ref, ref_ins, cot)
+    errs = []
+    for g, w in zip(got, want):
+        if g is None or not torch.isfinite(g).all():
+            raise AssertionError("a gradient is missing or not finite")
+        errs.append(float((g.float() - w.float()).abs().max() / w.float().abs().max().clamp_min(1e-30)))
+    return out, errs

@@ -1,0 +1,247 @@
+"""Train BEVFormer on a nuScenes-layout set (port of `tools/bevformer/train.py`).
+
+    python -m bevformer_tensorrt_tpu_torch.tools.train <micro|tiny|small|base> --infos <infos.pkl>
+        [--data-root DIR] [--temporal [--queue-length 4]] [--encoder-layers N]
+        [--decoder-layers N] [--steps 1000] [--lr 2e-4] [--warmup N]
+        [--out checkpoints/bevformer.pth] [--resume FILE | --checkpoint FILE]
+        [--save-every 1000] [--log-every 10] [--no-augment] [--aug-scales S ...]
+        [--device cuda]
+
+The loader (`data/nuscenes.py`, with the train pipeline's photometric
+augmentation) feeds `train/step.py`: the model's forward (the MSDA and flash
+kernels on CUDA), the DETR loss with Hungarian matching on every decoder
+level, the backward and the AdamW recipe.  One card is one data-parallel
+rank: a step takes one sample (a frame, or with `--temporal` a clip of
+`--queue-length` same-scene frames whose first frames build prev_bev
+without gradients).  A set of at most 64 frames (not with `--temporal`) is
+an overfit run: every batch is kept on the device once and the order
+reshuffled (seed 1).  Float32, as the JAX trainer.
+
+`--out` writes an upstream-layout state_dict (`.pth`), which
+`tools/evaluate.py --checkpoint` reads; `--resume` and `--checkpoint` read
+one.  Left out (the JAX CLI has them): `--quant-scales` (QAT),
+`--distributed`, and `--msda-impl` (on the card the kernel forward is always
+used, the JAX `sorted` choice; the plain path is the CPU's).  Runs on CUDA
+unless `--device cpu` is given.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+from pathlib import Path
+from typing import Dict, Iterator, List
+
+import numpy as np
+import torch
+
+from ..configs import bevformer as configs
+from ..data.nuscenes import IMG_NORM_CAFFE, IMG_NORM_PYTORCH, NuScenesFrames, TemporalClipSampler
+from ..data.transforms import MultiViewTrainAugment, RandomScaleImage
+from ..models.modules.encoder import cam_budget_overflow
+from ..runtime.engine import resolve_device
+from ..runtime.torch_import import (
+    load_bevformer_checkpoint,
+    load_torch_checkpoint,
+    upstream_layout,
+)
+from ..train import init_train_state, temporal_train_step, train_step
+
+MODELS = ("micro", "tiny", "small", "base")
+MAX_GT = 64  # clamped to num_query (the matching needs rows <= cols)
+OVERFIT_BATCHES = 64  # a set of at most this many distinct batches is kept on the device
+SCALARS = ("loss", "loss_cls", "loss_bbox", "num_pos")  # the metrics a step records
+
+
+def image_norm(model: str):
+    """tiny and micro train with the pytorch-style norm, the R101 configs
+    with the caffe-style one (the JAX trainer's rule)."""
+    return IMG_NORM_PYTORCH if model in ("tiny", "micro") else IMG_NORM_CAFFE
+
+
+def pad_gt(frame, max_gt: int):
+    """(gt_boxes [max_gt, 9], gt_labels [max_gt]) with -1 padding."""
+    gb = np.zeros((max_gt, 9), np.float32)
+    gl = np.full(max_gt, -1, np.int64)
+    k = min(len(frame.gt_labels), max_gt)
+    gb[:k] = frame.gt_boxes[:k]
+    gl[:k] = frame.gt_labels[:k]
+    return gb, gl
+
+
+def frame_batch(frames, max_gt: int) -> Dict[str, np.ndarray]:
+    """One sample: a frame, or a clip (its GT from the last frame)."""
+    gb, gl = pad_gt(frames[-1], max_gt)
+    if len(frames) == 1:
+        f = frames[0]
+        sample = dict(image=f.image[0], can_bus=f.can_bus, lidar2img=f.lidar2img)
+    else:
+        sample = dict(image=np.stack([f.image[0] for f in frames]),
+                      can_bus=np.stack([f.can_bus for f in frames]),
+                      lidar2img=np.stack([f.lidar2img for f in frames]))
+    return {**{k: v[None] for k, v in sample.items()}, "gt_boxes": gb[None], "gt_labels": gl[None]}
+
+
+def batch_iter(frames: NuScenesFrames, max_gt: int) -> Iterator[Dict[str, np.ndarray]]:
+    """Single-frame batches of one sample, shuffled with seed 0 every epoch
+    (the JAX CLI's `batch_iter` on one data-parallel rank)."""
+    idx = np.arange(len(frames))
+    rng = np.random.default_rng(0)
+    while True:
+        rng.shuffle(idx)
+        for i in idx:
+            yield frame_batch([frames.frame(int(i))], max_gt)
+
+
+def temporal_batch_iter(frames: NuScenesFrames, queue_length: int,
+                        max_gt: int) -> Iterator[Dict[str, np.ndarray]]:
+    """Clip batches of one sample: queue_length consecutive same-scene
+    frames with relative can_bus deltas (`TemporalClipSampler`)."""
+    clips = TemporalClipSampler(frames, queue_length=queue_length)
+    if len(clips) < 1:
+        raise SystemExit(f"--temporal needs >= 1 clip of length {queue_length}; the set has "
+                         f"{len(clips)}")
+    idx = np.arange(len(clips))
+    rng = np.random.default_rng(0)
+    while True:
+        rng.shuffle(idx)
+        for k in idx:
+            yield frame_batch(clips.clip(int(k)), max_gt)
+
+
+def to_device(batch, device) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+
+
+def cached_iter(batches: List[Dict[str, torch.Tensor]]):
+    """The device-resident batches of an overfit run, reshuffled (seed 1)."""
+    rng = np.random.default_rng(1)
+    order = np.arange(len(batches))
+    while True:
+        rng.shuffle(order)
+        for k in order:
+            yield batches[int(k)]
+
+
+def save(cfg, model, path: str) -> None:
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    torch.save(upstream_layout(cfg, sd), path)
+
+
+@dataclasses.dataclass
+class TrainResult:
+    """What `main` ran: the config, the trained model and its optimizer,
+    each step's metrics as floats, and each step's host seconds."""
+
+    cfg: configs.BEVFormerConfig
+    model: torch.nn.Module
+    optimizer: object
+    metrics: List[Dict[str, float]]
+    step_seconds: List[float]
+    out: str
+
+
+def main(argv=None) -> TrainResult:
+    """Parse `argv`, train, save; the result is returned for callers that
+    drive the tool from Python."""
+    ap = argparse.ArgumentParser(
+        description=__doc__.splitlines()[0],
+        epilog="Not ported from the JAX CLI: --quant-scales (QAT), --distributed, --msda-impl.")
+    ap.add_argument("model", choices=MODELS)
+    ap.add_argument("--infos", required=True)
+    ap.add_argument("--data-root", default=None)
+    ap.add_argument("--checkpoint", default=None,
+                    help="start from this upstream-layout state_dict (.pth)")
+    ap.add_argument("--temporal", action="store_true",
+                    help="temporal-queue training: clips of --queue-length same-scene frames, "
+                         "the first ones without gradients build prev_bev, the last trains "
+                         "(reference BEVFormer.forward_train + obtain_history_bev)")
+    ap.add_argument("--queue-length", type=int, default=4,
+                    help="frames per temporal clip (reference queue_length=4)")
+    ap.add_argument("--encoder-layers", type=int, default=None,
+                    help="override the encoder depth (smoke runs, ablations)")
+    ap.add_argument("--decoder-layers", type=int, default=None,
+                    help="override the decoder depth (smoke runs, ablations)")
+    ap.add_argument("--steps", type=int, default=1000)
+    ap.add_argument("--lr", type=float, default=None, help="peak learning rate (default 2e-4)")
+    ap.add_argument("--warmup", type=int, default=None,
+                    help="linear warmup steps (default min(500, steps // 5))")
+    ap.add_argument("--out", default="checkpoints/bevformer.pth",
+                    help="upstream-layout state_dict written at the end (and every --save-every)")
+    ap.add_argument("--resume", default=None,
+                    help="start from a prior --out checkpoint (the optimizer starts anew)")
+    ap.add_argument("--save-every", type=int, default=1000)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--no-augment", action="store_true",
+                    help="no photometric augmentation (reference "
+                         "PhotoMetricDistortionMultiViewImage)")
+    ap.add_argument("--aug-scales", type=float, nargs="*", default=None,
+                    help="optional RandomScaleImageMultiViewImage scales (e.g. 0.8)")
+    ap.add_argument("--device", default=None, help="default: cuda (raises without one)")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    over = {k: v for k, v in (("encoder_layers", args.encoder_layers),
+                              ("decoder_layers", args.decoder_layers)) if v is not None}
+    cfg = getattr(configs, f"bevformer_{args.model}")(**over)
+    augment = None
+    if not args.no_augment:
+        augment = MultiViewTrainAugment(
+            scale=RandomScaleImage(args.aug_scales) if args.aug_scales else None)
+    frames = NuScenesFrames(args.infos, args.data_root, img_norm=image_norm(args.model),
+                            target_hw=(cfg.img_h, cfg.img_w), augment=augment)
+    max_gt = min(MAX_GT, cfg.num_query)
+    lr = args.lr if args.lr is not None else 2e-4
+    warmup = args.warmup if args.warmup is not None else min(500, args.steps // 5)
+    model, optimizer = init_train_state(cfg, device, learning_rate=lr, total_steps=args.steps,
+                                        warmup_steps=warmup)
+    start_from = args.resume or args.checkpoint
+    if start_from:
+        model.load_state_dict(load_bevformer_checkpoint(cfg, load_torch_checkpoint(start_from)),
+                              strict=True)
+    model.train()
+
+    it = (temporal_batch_iter(frames, args.queue_length, max_gt) if args.temporal
+          else batch_iter(frames, max_gt))
+    n_distinct = len(frames) if not args.temporal else OVERFIT_BATCHES + 1
+    if 0 < n_distinct <= OVERFIT_BATCHES:
+        it = cached_iter([to_device(next(it), device) for _ in range(n_distinct)])
+        print(f"cached {n_distinct} device-resident batches (overfit mode)", file=sys.stderr,
+              flush=True)
+    else:
+        it = (to_device(b, device) for b in it)
+
+    # the engine's deploy guard: a rig whose cameras see more BEV queries than
+    # the compaction budget would truncate cross-attention in training too
+    if cfg.cam_budget < 1.0:
+        visible, overflow = cam_budget_overflow(cfg, np.asarray(frames.frame(0).lidar2img))
+        if overflow > 0:
+            print(f"WARNING: cam_budget={cfg.cam_budget} drops up to {overflow} visible BEV "
+                  f"queries/camera on this rig (visible {visible.tolist()}); train with "
+                  "cam_budget=1.0 for exact cross-attention", file=sys.stderr)
+
+    step_fn = temporal_train_step if args.temporal else train_step
+    history: List[Dict[str, float]] = []
+    seconds: List[float] = []
+    t0 = time.perf_counter()
+    for step in range(args.steps):
+        t_step = time.perf_counter()
+        metrics = step_fn(model, optimizer, next(it))
+        history.append({k: float(metrics[k]) for k in SCALARS})
+        seconds.append(time.perf_counter() - t_step)
+        if step % args.log_every == 0:
+            m = history[-1]
+            dt = time.perf_counter() - t0
+            print(f"step {step}: loss {m['loss']:.4f} cls {m['loss_cls']:.4f} "
+                  f"bbox {m['loss_bbox']:.4f} ({dt / (step + 1):.2f}s/step)", file=sys.stderr)
+        if args.save_every and step and step % args.save_every == 0:
+            save(cfg, model, args.out)
+    save(cfg, model, args.out)
+    print(f"saved -> {args.out}")
+    return TrainResult(cfg, model, optimizer, history, seconds, args.out)
+
+
+if __name__ == "__main__":
+    main()

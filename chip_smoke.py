@@ -90,7 +90,26 @@ Phases (any failure exits non-zero before the result lines):
      Then `tools/calibrate.py tiny --infos` (`max`, the 4 frames, TSA's
      tables excluded) and `tools/evaluate.py tiny --quant int8` from those
      scales, with the launch counts of phase 10, its loop timed as base's.
- 13. One JSON line of per-kernel numbers, the nvidia-smi line of the card,
+ 13. Training (float32, as the JAX trainer), on a generated full-size set
+     of 4 frames: every kernel op's gradient through its autograd Function
+     (MSDA from float and int8 tables at tiny's SCA, TSA and decoder shapes,
+     flash and int8 flash at the decoder's, the DCN's im2col route, fused
+     bfloat16 kernel and int8 table at base's stage 3) against the plain
+     version's own autograd, each launch counted, the forward, the
+     Function's backward and the plain forward+backward timed; one tiny
+     loader frame with GT on the kernel path and the plain path from the
+     same seeded weights: the same matching on every decoder level, the loss
+     within 1e-4, each parameter's gradient within TRAIN_GRAD_REL_L2, the
+     plain path under 1e-7 image noise measured beside it; 20 overfit steps
+     on the kernel path (launch counts around them, the last loss below the
+     first; each step split into forward, backward and optimizer, and peak
+     memory) and 5 on the plain path; one temporal step of a 4-frame clip
+     (4 forwards of launches, a loss other than the last frame's alone);
+     `tools/train.py tiny` for 5 steps, then `tools/evaluate.py tiny
+     --checkpoint` on its `.pth`; one `tools/train.py small` step with one
+     encoder and one decoder layer (the full-width R101-DCN backbone, 26 DCN
+     launches, every DCN's weight and offset conv given a gradient).
+ 14. One JSON line of per-kernel numbers, the nvidia-smi line of the card,
      and the final `{"ok": true, "device": ...}` line.
 Ahead of phase 10, three phases of their own:
   a. The DCN op from the int8 table (the fused kernel, float32 and
@@ -123,6 +142,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -139,7 +159,11 @@ from bevformer_tensorrt_tpu_torch.configs.bevformer import (
     bevformer_tiny,
 )
 from bevformer_tensorrt_tpu_torch.core.nms_free_coder import NMSFreeCoder
-from bevformer_tensorrt_tpu_torch.data.nuscenes import load_image
+from bevformer_tensorrt_tpu_torch.data.nuscenes import (
+    NuScenesFrames,
+    TemporalClipSampler,
+    load_image,
+)
 from bevformer_tensorrt_tpu_torch.models.backbones.resnet import DeformConv2d
 from bevformer_tensorrt_tpu_torch.models.detectors.bevformer import BEVFormer
 from bevformer_tensorrt_tpu_torch.models.layers import QConv, QDense
@@ -159,6 +183,7 @@ from bevformer_tensorrt_tpu_torch.runtime.torch_import import (
 )
 from bevformer_tensorrt_tpu_torch.native import normalize_pad_chw_native
 from bevformer_tensorrt_tpu_torch.tools import calibrate, evaluate, kernel_bench
+from bevformer_tensorrt_tpu_torch.tools import train as train_cli
 from bevformer_tensorrt_tpu_torch.tools import kernel_cases as kc
 from bevformer_tensorrt_tpu_torch.tools.kernel_cases import (
     DCN_INT8_SHAPES,
@@ -175,7 +200,13 @@ from bevformer_tensorrt_tpu_torch.tools.kernel_cases import (
     dtype_name,
     gemm_case,
 )
-from bevformer_tensorrt_tpu_torch.tools.path_diff import plain_versions, rel_errors, run_frames
+from bevformer_tensorrt_tpu_torch.tools.path_diff import (
+    IMAGE_NOISE,
+    plain_versions,
+    rel_errors,
+    run_frames,
+)
+from bevformer_tensorrt_tpu_torch.train import init_train_state, loss_fn, temporal_train_step
 from bevformer_tensorrt_tpu_torch.weights import init_weights
 
 REPO = Path(__file__).resolve().parent
@@ -1420,6 +1451,328 @@ def phase_eval(card):
     return res
 
 
+# ---- phase 13: training ------------------------------------------------------
+
+# (op of kernel_cases.GRAD_OPS, row of its shape table): tiny's spatial
+# cross-attention, temporal self-attention and decoder, the decoder's flash
+# shape, base's DCN stage 3
+GRAD_CASES = (("msda", "sca"), ("msda", "tsa"), ("msda", "decoder"), ("msda_int8", "sca"),
+              ("flash", "decoder"), ("flash_int8", "decoder"), ("dcn_im2col", "base_s3"),
+              ("dcn_fused", "base_s3"), ("dcn_fused_int8", "base_s3"))
+TRAIN_OVERFIT_STEPS = 20
+TRAIN_PLAIN_STEPS = 5
+TRAIN_QUEUE = 4
+TRAIN_LOSS_TOL = 1e-4  # relative, the kernel path's loss against the plain path's
+# Each parameter's gradient, kernel path against plain path, in the relative
+# L2 norm.  The plain path is not better conditioned than that: on the H100 a
+# relative change of 1e-7 in the image moved its own tiny gradients by up to
+# 9.9e-4 (median 8.1e-5) while the kernels moved them by up to 1.19e-3 (median
+# 4.0e-4; the MSDA modules' attention logits the most), so the bar sits at
+# about 2.5x the kernels' and 3x the noise's largest (PERF.md, section 6, PR 9).
+TRAIN_GRAD_REL_L2 = 3e-3
+# A key projection's bias adds q.b to every logit of a query, which the softmax
+# ignores: its gradient is 0 up to float noise, so it has no relative error.
+ZERO_GRADIENT = ("self_attn.k_proj.bias",)
+
+
+def grad_rows(dev, gen):
+    """Step 1 of the train phase: each op's gradient through its Function
+    against the plain version's autograd on the same CUDA inputs, the
+    launch it counts, and its times: the kernel's forward, the Function's
+    backward (the plain recompute and its VJP), the plain forward+backward."""
+    tables = {"msda": MSDA_SHAPES, "flash": FLASH_SHAPES, "dcn": DCN_SHAPES}
+    by_name = {fn.__name__: fn for fn in KERNEL_WRAPPERS}
+    rows = []
+    for op, shape in GRAD_CASES:
+        wrapper, table = kc.GRAD_OPS[op]
+        kernel, plain, inputs, dtype = kc.grad_case(op, tables[table][shape], gen, dev)
+        reset_launch_counts()
+        out, errs = kc.grad_check(kernel, plain, inputs, gen)
+        torch.cuda.synchronize()
+        launches = by_name[wrapper].launches
+        if launches < 1:
+            raise AssertionError(f"train grads {op} {shape}: {wrapper} was not launched")
+        if not max(errs) <= kc.GRAD_TOL[dtype]:
+            raise AssertionError(f"train grads {op} {shape}: relative errors {errs}")
+        ins = [t.detach().requires_grad_(t.is_floating_point()) for t in inputs]
+        cot = torch.randn(out.shape, generator=gen).to(dev, out.dtype)
+        with torch.no_grad():
+            fwd_ms = device_ms(lambda: kernel(*ins), 5, 3)
+        total_ms = device_ms(lambda: torch.autograd.grad(kernel(*ins), ins, cot), 3, 3)
+        plain_ms = device_ms(lambda: torch.autograd.grad(plain(*ins), ins, cot), 3, 3)
+        rows.append(dict(op=op, shape=shape, dtype=dtype_name(dtype), launches=launches,
+                         max_rel_err=max(errs), forward_ms=fwd_ms, backward_ms=total_ms - fwd_ms,
+                         plain_forward_backward_ms=plain_ms))
+        log(f"  train grads {op:15s} {shape:8s} {dtype_name(dtype):8s} rel err {max(errs):.2e} "
+            f"launches {launches}; kernel forward {fwd_ms:.3f} ms, Function backward "
+            f"{total_ms - fwd_ms:.3f} ms, plain forward+backward {plain_ms:.3f} ms")
+        del kernel, plain, inputs, ins, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def set_frames(root, cfg, model):
+    infos = root / "nuscenes_infos_synthetic.pkl"
+    return NuScenesFrames(infos, root, img_norm=train_cli.image_norm(model),
+                          target_hw=(cfg.img_h, cfg.img_w))
+
+
+def step_grads(model, batch):
+    """(loss, the matching row2col, each parameter's gradient) of one
+    single-frame loss and backward."""
+    model.zero_grad(set_to_none=True)
+    loss, m = loss_fn(model, batch)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    return float(loss.detach()), m["row2col"].cpu(), grads
+
+
+def grad_rel_l2(got, want, names):
+    return {n: float((got[n] - want[n]).norm() / want[n].norm().clamp_min(1e-30)) for n in names}
+
+
+def timed_steps(model, opt, batch, n):
+    """n single-frame steps, each split by synchronised host clocks into
+    forward (with the host matching), backward and optimizer; losses and
+    the peak device memory of the steps."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, split = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss, m = loss_fn(model, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        losses.append(float(m["loss"]))
+        split.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3))
+    med = np.median(np.array(split), axis=0)
+    return dict(losses=losses, forward_ms=float(med[0]), backward_ms=float(med[1]),
+                optimizer_ms=float(med[2]), step_ms=float(np.median([sum(s) for s in split])),
+                peak_memory_mb=torch.cuda.max_memory_allocated() / 1e6, steps=n)
+
+
+def train_paths(card, dev, root):
+    """Steps 2-4: one tiny frame with GT on the kernel path and the plain
+    path (the same seeded weights), then the overfit run and the plain
+    path's steps timed, then one temporal step."""
+    cfg = bevformer_tiny()
+    frames = set_frames(root, cfg, "tiny")
+    max_gt = min(train_cli.MAX_GT, cfg.num_query)
+    batch = train_cli.to_device(train_cli.frame_batch([frames.frame(0)], max_gt), dev)
+    noisy = dict(batch)
+    g = torch.Generator().manual_seed(1)
+    noisy["image"] = batch["image"] * (1 + IMAGE_NOISE * torch.randn(batch["image"].shape,
+                                                                    generator=g).to(dev))
+    model, _ = init_train_state(cfg, dev, seed=0)
+    reset_launch_counts()
+    k_loss, k_rows, k_grads = step_grads(model, batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != counts_of(msda=12, flash_attn=6):
+        raise AssertionError(f"train tiny kernel path: launches {counts}")
+    with plain_versions():
+        p_loss, p_rows, p_grads = step_grads(model, batch)
+        n_loss, n_rows, n_grads = step_grads(model, noisy)
+    if not torch.equal(k_rows, p_rows):
+        raise AssertionError("train tiny: the kernel path's matching differs from the plain path's")
+    loss_err = abs(k_loss - p_loss) / abs(p_loss)
+    if not loss_err <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"train tiny: loss {k_loss} against plain {p_loss}")
+    if sorted(k_grads) != sorted(p_grads):
+        raise AssertionError("train tiny: the paths give gradients to different parameters")
+    top = max(float(g.abs().max()) for g in p_grads.values())
+    names = []
+    for n in p_grads:
+        if n.endswith(ZERO_GRADIENT):
+            if not max(float(k_grads[n].abs().max()), float(p_grads[n].abs().max())) < 1e-5 * top:
+                raise AssertionError(f"train tiny: {n} has a gradient")
+        else:
+            names.append(n)
+    kern = grad_rel_l2(k_grads, p_grads, names)
+    chaos = grad_rel_l2(n_grads, p_grads, names)
+    worst = sorted(names, key=lambda n: -kern[n])[:5]
+    log(f"train tiny kernel vs plain on {card}: same matching on {k_rows.shape[1]} levels; loss "
+        f"{k_loss:.6f} vs {p_loss:.6f} (rel {loss_err:.2e}); gradient rel L2 over "
+        f"{len(names)} parameters: max {max(kern.values()):.3e}, median "
+        f"{np.median(list(kern.values())):.3e}; the plain path under {IMAGE_NOISE} image noise: "
+        f"max {max(chaos.values()):.3e}, median {np.median(list(chaos.values())):.3e}, loss "
+        f"{n_loss:.6f}")
+    for n in worst:
+        log(f"  {n}: kernel vs plain {kern[n]:.3e}, plain under noise {chaos[n]:.3e}")
+    bad = [n for n in names if not kern[n] <= TRAIN_GRAD_REL_L2]
+    if bad:
+        raise AssertionError(f"train tiny: gradients of {bad[:5]} above {TRAIN_GRAD_REL_L2}")
+    res = dict(loss=k_loss, plain_loss=p_loss, loss_rel_err=loss_err, parameters=len(names),
+               grad_rel_l2_max=max(kern.values()),
+               grad_rel_l2_median=float(np.median(list(kern.values()))),
+               noise_grad_rel_l2_max=max(chaos.values()),
+               noise_grad_rel_l2_median=float(np.median(list(chaos.values()))),
+               worst={n: (kern[n], chaos[n]) for n in worst})
+    del model, k_grads, p_grads, n_grads
+    torch.cuda.empty_cache()
+
+    # the overfit run on the kernel path, counts around it; the plain path's steps
+    model, opt = init_train_state(cfg, dev, seed=0, learning_rate=2e-4,
+                                  total_steps=TRAIN_OVERFIT_STEPS, warmup_steps=0)
+    reset_launch_counts()
+    kernel_run = timed_steps(model, opt, batch, TRAIN_OVERFIT_STEPS)
+    counts = launch_counts()
+    want = counts_of(msda=12 * TRAIN_OVERFIT_STEPS, flash_attn=6 * TRAIN_OVERFIT_STEPS)
+    losses = kernel_run["losses"]
+    log(f"train tiny overfit on {card}: {TRAIN_OVERFIT_STEPS} steps, launches "
+        f"{dict(zip(COUNT_NAMES, counts))}; loss {losses[0]:.4f} -> {losses[-1]:.4f}; step "
+        f"{kernel_run['step_ms']:.1f} ms (median): forward {kernel_run['forward_ms']:.1f}, "
+        f"backward {kernel_run['backward_ms']:.1f}, optimizer {kernel_run['optimizer_ms']:.1f}; "
+        f"peak {kernel_run['peak_memory_mb']:.0f} MB")
+    if counts != want:
+        raise AssertionError(f"train tiny overfit: expected {want} launches, got {counts}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train tiny overfit: losses {losses}")
+    res["kernel_path"] = kernel_run
+    del model, opt
+    torch.cuda.empty_cache()
+    model, opt = init_train_state(cfg, dev, seed=0, learning_rate=2e-4,
+                                  total_steps=TRAIN_OVERFIT_STEPS, warmup_steps=0)
+    with plain_versions():
+        plain_run = timed_steps(model, opt, batch, TRAIN_PLAIN_STEPS)
+    log(f"train tiny plain path on {card}: {TRAIN_PLAIN_STEPS} steps, step "
+        f"{plain_run['step_ms']:.1f} ms (median): forward {plain_run['forward_ms']:.1f}, "
+        f"backward {plain_run['backward_ms']:.1f}, optimizer {plain_run['optimizer_ms']:.1f}; "
+        f"peak {plain_run['peak_memory_mb']:.0f} MB; losses {plain_run['losses']}")
+    if not abs(plain_run["losses"][0] - losses[0]) <= TRAIN_LOSS_TOL * abs(losses[0]):
+        raise AssertionError(f"train tiny: first loss {plain_run['losses'][0]} on the plain path "
+                             f"against {losses[0]}")
+    res["plain_path"] = plain_run
+
+    # one temporal step: a clip of TRAIN_QUEUE frames (the generator writes
+    # two frames a scene, so the set's frames are relabelled as one scene)
+    data = pickle.loads((root / "nuscenes_infos_synthetic.pkl").read_bytes())
+    for info in data["infos"]:
+        info["scene_token"] = "one-scene"
+    one = root / "one_scene.pkl"
+    one.write_bytes(pickle.dumps(data))
+    clip_frames = NuScenesFrames(one, root, img_norm=train_cli.image_norm("tiny"),
+                                 target_hw=(cfg.img_h, cfg.img_w))
+    clip = TemporalClipSampler(clip_frames, TRAIN_QUEUE).clip(0)
+    tbatch = train_cli.to_device(train_cli.frame_batch(clip, max_gt), dev)
+    single = dict(tbatch, image=tbatch["image"][:, -1], can_bus=tbatch["can_bus"][:, -1],
+                  lidar2img=tbatch["lidar2img"][:, -1])
+    with torch.no_grad():
+        single_loss = float(loss_fn(model, single)[0])
+    reset_launch_counts()
+    metrics = temporal_train_step(model, opt, tbatch)
+    t_loss = float(metrics["loss"])
+    counts = launch_counts()
+    log(f"train tiny temporal step (queue {TRAIN_QUEUE}): loss {t_loss:.4f}, the last frame "
+        f"alone {single_loss:.4f}; launches {dict(zip(COUNT_NAMES, counts))}")
+    if counts != counts_of(msda=12 * TRAIN_QUEUE, flash_attn=6 * TRAIN_QUEUE):
+        raise AssertionError(f"train temporal: launches {counts}")
+    if not (np.isfinite(t_loss) and abs(t_loss - single_loss) > 1e-6):
+        raise AssertionError(f"train temporal: loss {t_loss} against single-frame {single_loss}")
+    res["temporal"] = dict(loss=t_loss, single_frame_loss=single_loss,
+                           launches=dict(zip(COUNT_NAMES, counts)))
+    del model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_cli_round_trip(card, root, tmp):
+    """Step 5: tools/train.py tiny for 5 steps, then tools/evaluate.py tiny
+    --checkpoint on what it wrote."""
+    infos = str(root / "nuscenes_infos_synthetic.pkl")
+    pth = str(Path(tmp) / "tiny_trained.pth")
+    reset_launch_counts()
+    out = train_cli.main(["tiny", "--infos", infos, "--data-root", str(root), "--steps", "5",
+                          "--log-every", "1", "--out", pth])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != counts_of(msda=12 * 5, flash_attn=6 * 5):
+        raise AssertionError(f"train CLI: launches {counts}")
+    if not all(np.isfinite(m["loss"]) for m in out.metrics):
+        raise AssertionError(f"train CLI: {out.metrics}")
+    ev = evaluate.main(["tiny", "--infos", infos, "--data-root", str(root), "--checkpoint", pth])
+    sd = ev.engine.model.state_dict()
+    if not all(torch.equal(sd[k], v) for k, v in out.model.state_dict().items()):
+        raise AssertionError("train CLI: the evaluator's weights are not the trained ones")
+    if not all(np.isfinite(v) for v in ev.metrics.values()):
+        raise AssertionError(f"train CLI: evaluation metrics {ev.metrics}")
+    log(f"train CLI tiny: 5 steps, losses {[round(m['loss'], 4) for m in out.metrics]}, "
+        f"{1e3 * float(np.median(out.step_seconds)):.1f} ms a step (median, host clock); "
+        f"evaluated from its .pth: NDS {ev.metrics['NDS']:.4f}")
+    res = dict(losses=[m["loss"] for m in out.metrics],
+               step_ms=[s * 1e3 for s in out.step_seconds], metrics=ev.metrics)
+    del out, ev
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_small_step(card, root, tmp):
+    """Step 6: one BEVFormer-small step, one encoder and one decoder layer,
+    through tools/train.py from a seeded checkpoint whose DCN offset convs
+    are scaled as the eval phase scales them: the R101-DCN backbone at full
+    width, 26 DCN launches, every DCN's weight and offset conv trained."""
+    cfg = bevformer_small(encoder_layers=1, decoder_layers=1)
+    model = init_weights(BEVFormer(cfg), torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, DeformConv2d):
+                m.conv_offset.weight.mul_(OFFSET_CONV_SCALE)
+    ckpt = Path(tmp) / "small_seeded.pth"
+    torch.save(upstream_layout(cfg, model.state_dict()), ckpt)
+    del model
+    infos = str(root / "nuscenes_infos_synthetic.pkl")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = train_cli.main(["small", "--infos", infos, "--data-root", str(root), "--steps", "1",
+                          "--encoder-layers", "1", "--decoder-layers", "1", "--checkpoint",
+                          str(ckpt), "--out", str(Path(tmp) / "small_trained.pth")])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    if counts != counts_of(msda=3, flash_attn=1, dcn_im2col=26):
+        raise AssertionError(f"train small: launches {counts}")
+    loss = out.metrics[0]["loss"]
+    dcns = [(n, m) for n, m in out.model.named_modules() if isinstance(m, DeformConv2d)]
+    dead = [n for n, m in dcns for p in (m.weight, m.conv_offset.weight)
+            if p.grad is None or not torch.isfinite(p.grad).all() or p.grad.abs().max() == 0]
+    log(f"train small (1 encoder, 1 decoder layer) on {card}: loss {loss:.4f}, "
+        f"{1e3 * out.step_seconds[0]:.0f} ms, launches {dict(zip(COUNT_NAMES, counts))}; "
+        f"{len(dcns)} DCN blocks, weight and offset-conv gradients non-zero in "
+        f"{len(dcns) - len(set(dead))}; peak {peak_mb:.0f} MB")
+    if not np.isfinite(loss) or dead or len(dcns) != 26:
+        raise AssertionError(f"train small: loss {loss}, no gradient in {dead}")
+    res = dict(loss=loss, step_ms=out.step_seconds[0] * 1e3, dcn_blocks=len(dcns),
+               launches=dict(zip(COUNT_NAMES, counts)), peak_memory_mb=peak_mb)
+    del out
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train(card, dev, gen):
+    """BEVFormer training on the card: the op gradients, the kernel path
+    against the plain path, the overfit run, a temporal step, the train CLI
+    round trip and one small step, on a generated full-size set (4 frames of
+    6 x 1600x900)."""
+    res = dict(grads=grad_rows(dev, gen))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        root = Path(tmp) / "set"
+        subprocess.run([sys.executable, str(REPO / "tools" / "make_synthetic_nuscenes.py"),
+                        str(root), "--frames", str(EVAL_FRAMES)],
+                       check=True, capture_output=True, timeout=300)
+        res.update(train_paths(card, dev, root))
+        res["cli"] = train_cli_round_trip(card, root, tmp)
+        res["small"] = train_small_step(card, root, tmp)
+    return res
+
+
 def frame_sums(rows, frame, library, extra=(), dtype="float32", key="launches_per_frame"):
     """The `dtype` launches of one `frame` (tiny, base) at the main path's
     shapes, summed: ms per frame.  `extra` names further row keys to sum."""
@@ -1541,7 +1894,8 @@ def main(argv=None):
                 want=(6, 0, 26, 12, 6, 0), scales=base_scales)),
             ("small_int8", lambda: phase_int8_frame(
                 bevformer_small, card, exclude=None, want=(3, 0, 0, 9, 6, 26))),
-            ("eval", lambda: phase_eval(card))):
+            ("eval", lambda: phase_eval(card)),
+            ("train", lambda: phase_train(card, dev, gen))):
         t0 = time.perf_counter()
         res[phase] = fn()
         seconds[phase] = time.perf_counter() - t0

@@ -77,7 +77,8 @@ def test_port_imports_no_jax():
                    "tools.calibrate", "ops.gather_probe", "runtime.torch_import",
                    "tools.kernel_bench", "tools.kernel_cases", "data.nuscenes",
                    "data.transforms", "data.sampler", "native", "evalsuite.nds",
-                   "evalsuite.format", "tools.evaluate"):
+                   "evalsuite.format", "tools.evaluate", "ops.plain_vjp", "train.losses",
+                   "train.assigner", "train.step", "tools.train"):
         assert os.path.exists(os.path.join(REPO, "bevformer_tensorrt_tpu_torch",
                                            *module.split(".")) + ".py"), module
 
