@@ -1,10 +1,13 @@
-"""Host-side native code of the port (the image part of
-`bevformer_tensorrt_tpu/native.py`): `csrc/image_pipeline.cpp`, built with
-g++ at first use and bound with ctypes.
+"""Host-side native code of the port (port of
+`bevformer_tensorrt_tpu/native.py`, its image and rotated-NMS parts):
+`csrc/image_pipeline.cpp` and `csrc/nms_rotated.cpp`, each built with g++ at
+first use and bound with ctypes.
 
-The library is built into `csrc/build/host/` under a name that carries a
-hash of its source and flags, so an edited source is rebuilt.  A failed
-build raises: there is no numpy fallback.  Nothing is built at import time.
+A library is built into `csrc/build/host/` under a name that carries a hash
+of its source and flags, so an edited source is rebuilt.  A failed build
+raises: there is no numpy fallback (the JAX wrapper falls back to
+`core/nms.py`; the port keeps that module as the tests' oracle only).
+Nothing is built at import time.
 """
 from __future__ import annotations
 
@@ -87,4 +90,52 @@ def normalize_pad_chw_native(images: np.ndarray, out_h: int, out_w: int,
         std_arr.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
         int(to_rgb),
     )
+    return out
+
+
+def _nms_lib() -> ctypes.CDLL:
+    lib = _libs.get("nms_rotated")
+    if lib is None:
+        lib = ctypes.CDLL(str(build("nms_rotated")))
+        lib.nms_rotated.restype = ctypes.c_int64
+        lib.nms_rotated.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_float,
+            ctypes.POINTER(ctypes.c_int64)]
+        lib.rotated_iou_matrix.restype = None
+        lib.rotated_iou_matrix.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.POINTER(ctypes.c_float)]
+        _libs["nms_rotated"] = lib
+    return lib
+
+
+def _boxes5(boxes5) -> np.ndarray:
+    b = np.ascontiguousarray(boxes5, np.float32)
+    if b.ndim != 2 or b.shape[1] != 5:
+        raise ValueError(f"expected [n, 5] boxes (cx, cy, w, l, yaw), got {b.shape}")
+    return b
+
+
+def nms_rotated_native(boxes5: np.ndarray, scores: np.ndarray,
+                       iou_threshold: float) -> np.ndarray:
+    """Greedy rotated NMS over [n, 5] (cx, cy, w, l, yaw) boxes in order of
+    descending score; returns the kept indices (into the input), highest
+    score first."""
+    order = np.argsort(-np.asarray(scores))
+    b = np.ascontiguousarray(_boxes5(boxes5)[order])
+    keep = np.empty(len(b), np.int64)
+    n = _nms_lib().nms_rotated(
+        b.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(b), ctypes.c_float(iou_threshold),
+        keep.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    return order[keep[:n]]
+
+
+def rotated_iou_matrix_native(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Pairwise rotated BEV IoU of [n, 5] and [m, 5] boxes: [n, m] float32."""
+    a, b = _boxes5(a), _boxes5(b)
+    out = np.empty((len(a), len(b)), np.float32)
+    _nms_lib().rotated_iou_matrix(
+        a.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(a),
+        b.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(b),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
     return out

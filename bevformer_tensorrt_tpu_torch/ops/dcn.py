@@ -238,7 +238,8 @@ def _scale_of_amax(amax, ch_group: int):
     """The scale [N, Cin / ch_group] from each channel's max |x| [N, Cin]
     float32 (the card's table computes that max in one kernel, then this)."""
     N, Cin = amax.shape
-    return amax.reshape(N, Cin // ch_group, ch_group).amax(-1).clamp_min(1e-12) / 127.0
+    return (amax.reshape(N, Cin // ch_group, ch_group).amax(-1).clamp_min(1e-12)
+            / amax.new_full((), 127.0))  # a 0-dim divisor: exact on CUDA too
 
 
 def _per_channel(scale, Cin: int, layout: str):

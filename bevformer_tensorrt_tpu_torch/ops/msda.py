@@ -181,7 +181,7 @@ def quantize_value_table(value):
     [bs, heads] float32): `s = max(amax over the head's keys and channels,
     1e-12) / 127`, `q = clip(round(v / s), -127, 127)`."""
     v = value.float()
-    scale = v.abs().amax(dim=(1, 3)).clamp_min(1e-12) / 127.0
+    scale = v.abs().amax(dim=(1, 3)).clamp_min(1e-12) / v.new_full((), 127.0)  # exact on CUDA
     q = torch.round(v / scale[:, None, :, None]).clamp(-127, 127).to(torch.int8)
     return q, scale
 

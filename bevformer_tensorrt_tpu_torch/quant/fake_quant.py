@@ -45,4 +45,4 @@ def per_channel_scale(w: torch.Tensor, axis: int = 0) -> torch.Tensor:
     axis = axis % w.dim()
     dims = [i for i in range(w.dim()) if i != axis]
     amax = w.float().abs().amax(dim=dims, keepdim=True)
-    return amax.clamp_min(1e-12) / 127.0
+    return amax.clamp_min(1e-12) / amax.new_full((), 127.0)  # exact on CUDA too

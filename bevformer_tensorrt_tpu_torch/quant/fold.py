@@ -4,7 +4,7 @@
 The int8 layers (`models/layers.py` QDense / QConv, quant="int8") derive the
 per-output-channel weight scale from the float weight at every forward.
 `fold_int8_weights` computes (wq int8, wscale float32) once into buffers of
-every layer that has a calibrated activation scale, and with them `wmat`,
+every int8 layer that has a calibrated activation scale, and with them `wmat`,
 the int8 product's weight operand (`int8_weight_matrix`), a derived
 buffer that no state_dict carries; the layers then use the folded pair.
 """
@@ -24,7 +24,9 @@ def quantize_weight(weight: torch.Tensor):
     """Per-output-channel int8 weight of a dense [out, in] or conv OIHW
     weight: (wq int8 of the same shape, wscale [out] float32)."""
     w = weight.detach().float()
-    wscale = w.abs().amax(dim=tuple(range(1, w.dim()))) / 127.0 + 1e-12
+    # a 0-dim divisor: CUDA divides a tensor by a Python number as a product
+    # with its reciprocal, one ulp off the CPU's and the JAX package's scale
+    wscale = w.abs().amax(dim=tuple(range(1, w.dim()))) / w.new_full((), 127.0) + 1e-12
     shape = (-1,) + (1,) * (w.dim() - 1)
     wq = torch.round(w / wscale.reshape(shape)).clamp(-127, 127).to(torch.int8)
     return wq, wscale
@@ -43,12 +45,15 @@ def int8_weight_matrix(wq: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def fold_int8_weights(model: nn.Module) -> nn.Module:
-    """Fill `wq` / `wscale` of every quantized layer whose `qdq_in` holds a
-    scale.  Idempotent; layers without a scale are left untouched (they
-    cannot run the int8 path anyway)."""
+    """Fill `wq` / `wscale` of every layer in mode "int8" whose `qdq_in`
+    holds a scale.  Idempotent; other layers are left untouched: without a
+    scale a layer cannot run the int8 path, and a QDQ-tier layer (mode True,
+    quantization-aware training included) fake-quantizes its live weight
+    and never reads a fold."""
     for m in model.modules():
         qdq = getattr(m, "qdq_in", None)
-        if isinstance(qdq, QDQ) and qdq.scale is not None and qdq.mode != "off" and m.mode:
+        if isinstance(qdq, QDQ) and qdq.scale is not None and qdq.mode != "off" \
+                and m.mode == "int8":
             m.wq, m.wscale = quantize_weight(m.weight)
             m.wmat = int8_weight_matrix(m.wq)
     return model

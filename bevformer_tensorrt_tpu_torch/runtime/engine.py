@@ -86,6 +86,22 @@ class Readback:
         return self._host
 
 
+def readback(device: torch.device, *tensors: torch.Tensor) -> Readback:
+    """Start copying a frame's outputs to the host and return at once.
+    On the card each tensor is copied without blocking into pinned host
+    memory, queued behind the work that computes it, and a CUDA event is
+    recorded after the copies; `Readback.result()` waits for that event
+    only.  A caller that starts frame t's readback before it dispatches
+    frame t+1 can decode frame t on the host while frame t+1 runs."""
+    if device.type != "cuda":
+        return Readback(tuple(t.cpu() for t in tensors), None)
+    host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+        t, non_blocking=True) for t in tensors)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return Readback(host, event)
+
+
 class BEVFormerEngine:
     """Per-frame BEVFormer inference with the recurrent BEV kept on the device.
 
@@ -155,19 +171,9 @@ class BEVFormerEngine:
         return classes, coords
 
     def readback(self, *tensors: torch.Tensor) -> Readback:
-        """Start copying a frame's outputs to the host and return at once.
-        On the card each tensor is copied without blocking into pinned host
-        memory, queued behind the work that computes it, and a CUDA event is
-        recorded after the copies; `Readback.result()` waits for that event
-        only.  A caller that starts frame t's readback before it dispatches
-        frame t+1 can decode frame t on the host while frame t+1 runs."""
-        if self.device.type != "cuda":
-            return Readback(tuple(t.cpu() for t in tensors), None)
-        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
-            t, non_blocking=True) for t in tensors)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        return Readback(host, event)
+        """`readback(self.device, *tensors)`: start copying a frame's
+        outputs to the host and return at once."""
+        return readback(self.device, *tensors)
 
     def calibrate(self, frames, method: str = "entropy",
                   percentile: float = 99.99) -> CalibrationResult:

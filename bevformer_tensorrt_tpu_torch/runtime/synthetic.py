@@ -39,3 +39,22 @@ def synthetic_frames(cfg, rng, scene_tokens: Sequence[str]) -> List[dict]:
         image = rng.standard_normal((1, cfg.num_cams, 3, cfg.img_h, cfg.img_w)).astype(np.float32)
         frames.append(dict(image=image, can_bus=can_bus, lidar2img=l2i, scene_token=token))
     return frames
+
+
+def bevdet_rig(num_cams: int, img_h: int, img_w: int, rng, focal: float = 0.5):
+    """A BEVDet rig of the same kind: cameras at evenly spaced yaws around
+    the ego car, looking outward, focal `focal` * img_w, as the loader's
+    infos give it.  Returns (sensor2ego [cams, 4, 4], intrinsics
+    [cams, 3, 3]), float32."""
+    s2e, intr = [], []
+    for c in range(num_cams):
+        yaw = 2 * np.pi * c / num_cams
+        rot = np.array([[np.cos(yaw), -np.sin(yaw), 0], [np.sin(yaw), np.cos(yaw), 0],
+                        [0, 0, 1]]) @ np.array([[0, 0, 1], [-1, 0, 0], [0, -1, 0]])
+        ext = np.eye(4)
+        ext[:3, :3] = rot
+        ext[:3, 3] = rng.normal(0, 0.2, 3)
+        s2e.append(ext)
+        intr.append(np.array([[img_w * focal, 0, img_w / 2], [0, img_w * focal, img_h / 2],
+                              [0, 0, 1]]))
+    return np.stack(s2e).astype(np.float32), np.stack(intr).astype(np.float32)

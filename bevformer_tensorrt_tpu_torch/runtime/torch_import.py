@@ -1,5 +1,6 @@
-"""Load upstream (mmdet / mmcv) BEVFormer checkpoints into the port (port of
-the BEVFormer part of `bevformer_tensorrt_tpu/runtime/torch_import.py`).
+"""Load upstream (mmdet / mmcv) BEVFormer and BEVDet checkpoints into the
+port (port of the BEVFormer and BEVDet parts of
+`bevformer_tensorrt_tpu/runtime/torch_import.py`).
 
 The upstream state_dict names its tensors `img_backbone.layer*.*`,
 `img_neck.{lateral_convs,fpn_convs}.*`,
@@ -21,8 +22,10 @@ needs and the checkpoint lacks, or a key of the checkpoint that no tensor of
 the model takes, raises `KeyError` with the key's name.  Only BatchNorm's
 `num_batches_tracked` counters and the head's `code_weights` (a loss weight)
 are passed over: upstream checkpoints carry them and inference has no use
-for them.  The importers of the other detector families wait for their
-families.
+for them.  `load_bevdet_checkpoint` is the same for BEVDet's keys
+(`bevdet_key_map`).  `upstream_layout` and `bevdet_upstream_layout` invert
+the renaming, for seeded checkpoints in the upstream layout.  The importers
+of the other detector families wait for their families.
 """
 from __future__ import annotations
 
@@ -31,8 +34,10 @@ from typing import Dict, Iterator, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from ..configs.bevdet import BEVDetConfig
 from ..configs.bevformer import BEVFormerConfig
 from ..models.backbones.resnet import STAGE_BLOCKS
+from ..models.heads.centerpoint_head import HEADS
 
 # (port key, upstream key, third): `third` is None, or 0 / 1 / 2 for the q / k /
 # v rows of an nn.MultiheadAttention in_proj tensor
@@ -54,16 +59,16 @@ def _bn(dst: str, src: str) -> Iterator[Entry]:
     yield f"{dst}.var", f"{src}.running_var", None
 
 
-def _resnet(cfg: BEVFormerConfig, dst: str, src: str) -> Iterator[Entry]:
+def _resnet(depth: int, dcn_stages, dst: str, src: str) -> Iterator[Entry]:
     yield from _wb(f"{dst}.stem_conv", f"{src}.conv1", bias=False)
     yield from _bn(f"{dst}.stem_bn", f"{src}.bn1")
-    for stage, blocks in enumerate(STAGE_BLOCKS[cfg.backbone_depth]):
+    for stage, blocks in enumerate(STAGE_BLOCKS[depth]):
         for b in range(blocks):
             d, s = f"{dst}.stage{stage}_block{b}", f"{src}.layer{stage + 1}.{b}"
             for n in (1, 2, 3):
                 yield from _wb(f"{d}.conv{n}", f"{s}.conv{n}", bias=False)
                 yield from _bn(f"{d}.bn{n}", f"{s}.bn{n}")
-            if cfg.dcn_stages[stage]:  # mmcv DCN: conv2.weight beside conv2.conv_offset
+            if dcn_stages[stage]:  # mmcv DCN: conv2.weight beside conv2.conv_offset
                 yield from _wb(f"{d}.conv2.conv_offset", f"{s}.conv2.conv_offset")
             if b == 0:
                 yield from _wb(f"{d}.downsample_conv", f"{s}.downsample.0", bias=False)
@@ -85,7 +90,7 @@ def _ffn_and_norms(dst: str, src: str) -> Iterator[Entry]:
 def bevformer_key_map(cfg: BEVFormerConfig) -> Iterator[Entry]:
     """Every tensor of `BEVFormer(cfg)`'s floating-point state_dict with the
     upstream key that holds it."""
-    yield from _resnet(cfg, "img_backbone", "img_backbone")
+    yield from _resnet(cfg.backbone_depth, cfg.dcn_stages, "img_backbone", "img_backbone")
     for i in range(len(cfg.backbone_out_indices)):
         yield from _wb(f"img_neck.lateral{i}", f"img_neck.lateral_convs.{i}.conv")
     for i in range(cfg.num_levels):
@@ -133,12 +138,96 @@ def bevformer_key_map(cfg: BEVFormerConfig) -> Iterator[Entry]:
         yield from _ffn_and_norms(d, s)
 
 
-def _config_of(model_or_cfg) -> BEVFormerConfig:
+def bevdet_key_map(cfg: BEVDetConfig) -> Iterator[Entry]:
+    """Every tensor of `BEVDet(cfg)`'s floating-point state_dict with the
+    upstream key that holds it (bevdet-r50-cbgs naming):
+
+      img_backbone.{conv1,bn1,layer*}          -> img_backbone (mmcv ResNet)
+      img_neck.lateral_convs.{i}.conv          -> img_neck.lateral{i}
+      img_neck.fpn_convs.0.conv                -> img_neck.fpn0
+      img_view_transformer.depth_net           -> the same (a bare conv)
+      img_bev_encoder_backbone.layers.{s}.{b}  -> stage{s}_block{b} (BasicBlocks;
+                                                  downsample a bare 3x3 conv with bias)
+      img_bev_encoder_neck.conv.{0,1,3,4}      -> conv1 / bn1 / conv2 / bn2
+      img_bev_encoder_neck.up2.{1,2,4}         -> up_conv / up_bn / out_conv
+      pts_bbox_head.shared_conv.{conv,bn}      -> shared_conv / shared_bn
+      pts_bbox_head.task_heads.0.{h}.{0,1}     -> {h}.{conv1 + bn1, conv2}
+    """
+    yield from _resnet(cfg.backbone_depth, (False,) * 4, "img_backbone", "img_backbone")
+    for i in range(len(cfg.backbone_out_indices)):
+        yield from _wb(f"img_neck.lateral{i}", f"img_neck.lateral_convs.{i}.conv")
+    yield from _wb("img_neck.fpn0", "img_neck.fpn_convs.0.conv")
+    yield from _wb("img_view_transformer.depth_net", "img_view_transformer.depth_net")
+    for s in range(len(cfg.bev_channels)):
+        for b in range(2):
+            d = f"img_bev_encoder_backbone.stage{s}_block{b}"
+            src = f"img_bev_encoder_backbone.layers.{s}.{b}"
+            for n in (1, 2):
+                yield from _wb(f"{d}.conv{n}", f"{src}.conv{n}", bias=False)
+                yield from _bn(f"{d}.bn{n}", f"{src}.bn{n}")
+            if b == 0:  # every stage starts with stride 2
+                yield from _wb(f"{d}.downsample_conv", f"{src}.downsample")
+    n = "img_bev_encoder_neck"
+    for dst, src, norm in (("conv1", "conv.0", False), ("bn1", "conv.1", True),
+                           ("conv2", "conv.3", False), ("bn2", "conv.4", True),
+                           ("up_conv", "up2.1", False), ("up_bn", "up2.2", True)):
+        yield from (_bn(f"{n}.{dst}", f"{n}.{src}") if norm
+                    else _wb(f"{n}.{dst}", f"{n}.{src}", bias=False))
+    yield from _wb(f"{n}.out_conv", f"{n}.up2.4")
+    h = "pts_bbox_head"
+    yield from _wb(f"{h}.shared_conv", f"{h}.shared_conv.conv", bias=False)
+    yield from _bn(f"{h}.shared_bn", f"{h}.shared_conv.bn")
+    for name in [n for n, _ in HEADS] + ["heatmap"]:
+        src = f"{h}.task_heads.0.{name}"
+        yield from _wb(f"{h}.{name}.conv1", f"{src}.0.conv", bias=False)
+        yield from _bn(f"{h}.{name}.bn1", f"{src}.0.bn")
+        yield from _wb(f"{h}.{name}.conv2", f"{src}.1")
+
+
+def _config_of(model_or_cfg, kind, what: str):
     cfg = getattr(model_or_cfg, "cfg", model_or_cfg)
-    if not isinstance(cfg, BEVFormerConfig):
-        raise TypeError("load_bevformer_checkpoint: expected a BEVFormer model or its "
-                        f"BEVFormerConfig, got {type(model_or_cfg).__name__}")
+    if not isinstance(cfg, kind):
+        raise TypeError(f"{what}: expected a model or its {kind.__name__}, got "
+                        f"{type(model_or_cfg).__name__}")
     return cfg
+
+
+def _load(entries, state_dict: Mapping, what: str, family: str) -> Dict[str, torch.Tensor]:
+    sd = {k.replace("module.", ""): v for k, v in state_dict.items()}
+    out: Dict[str, torch.Tensor] = {}
+    used = set()
+    for dst, src, third in entries:
+        if src not in sd:
+            raise KeyError(f"{what}: the checkpoint has no key '{src}' (needed for '{dst}' of "
+                           f"{family})")
+        t = torch.as_tensor(np.asarray(sd[src]) if not torch.is_tensor(sd[src]) else sd[src])
+        if third is not None:
+            if t.shape[0] % 3:
+                raise KeyError(f"{what}: '{src}' {tuple(t.shape)} does not split into q, k "
+                               "and v")
+            c = t.shape[0] // 3
+            t = t[third * c:(third + 1) * c]
+        out[dst] = t.detach().to("cpu", torch.float32).clone()
+        used.add(src)
+    unknown = sorted(k for k in sd if k not in used and k not in IGNORED_KEYS
+                     and not k.endswith(IGNORED_SUFFIXES))
+    if unknown:
+        raise KeyError(f"{what}: {family} takes no key '{unknown[0]}'"
+                       + (f" (and {len(unknown) - 1} more)" if len(unknown) > 1 else ""))
+    return out
+
+
+def _upstream(entries, port_state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    thirds: Dict[str, list] = {}
+    for dst, src, third in entries:
+        if third is None:
+            out[src] = port_state_dict[dst].detach().clone()
+        else:
+            thirds.setdefault(src, []).append(port_state_dict[dst].detach())
+    for src, parts in thirds.items():
+        out[src] = torch.cat(parts, dim=0)
+    return out
 
 
 def load_bevformer_checkpoint(model_or_cfg, state_dict: Mapping) -> Dict[str, torch.Tensor]:
@@ -149,47 +238,31 @@ def load_bevformer_checkpoint(model_or_cfg, state_dict: Mapping) -> Dict[str, to
     used; the model itself is not touched.  Raises `KeyError` naming a
     missing or an unknown key.  Scales of the quantized tiers are not part of
     an upstream checkpoint: calibrate after loading."""
-    cfg = _config_of(model_or_cfg)
-    sd = {k.replace("module.", ""): v for k, v in state_dict.items()}
-    out: Dict[str, torch.Tensor] = {}
-    used = set()
-    for dst, src, third in bevformer_key_map(cfg):
-        if src not in sd:
-            raise KeyError(f"load_bevformer_checkpoint: the checkpoint has no key '{src}' "
-                           f"(needed for '{dst}' of BEVFormer-{cfg.name})")
-        t = torch.as_tensor(np.asarray(sd[src]) if not torch.is_tensor(sd[src]) else sd[src])
-        if third is not None:
-            if t.shape[0] % 3:
-                raise KeyError(f"load_bevformer_checkpoint: '{src}' {tuple(t.shape)} does not "
-                               "split into q, k and v")
-            c = t.shape[0] // 3
-            t = t[third * c:(third + 1) * c]
-        out[dst] = t.detach().to("cpu", torch.float32).clone()
-        used.add(src)
-    unknown = sorted(k for k in sd if k not in used and k not in IGNORED_KEYS
-                     and not k.endswith(IGNORED_SUFFIXES))
-    if unknown:
-        raise KeyError(f"load_bevformer_checkpoint: BEVFormer-{cfg.name} takes no key "
-                       f"'{unknown[0]}'" + (f" (and {len(unknown) - 1} more)"
-                                            if len(unknown) > 1 else ""))
-    return out
+    cfg = _config_of(model_or_cfg, BEVFormerConfig, "load_bevformer_checkpoint")
+    return _load(bevformer_key_map(cfg), state_dict, "load_bevformer_checkpoint",
+                 f"BEVFormer-{cfg.name}")
 
 
 def upstream_layout(cfg: BEVFormerConfig, port_state_dict: Mapping) -> Dict[str, torch.Tensor]:
     """The inverse renaming, for tests and smoke runs that need a seeded
     checkpoint in the upstream layout: the floating-point tensors of a
     port-layout state_dict under their upstream keys (q / k / v joined into
-    in_proj)."""
-    out: Dict[str, torch.Tensor] = {}
-    thirds: Dict[str, list] = {}
-    for dst, src, third in bevformer_key_map(cfg):
-        if third is None:
-            out[src] = port_state_dict[dst].detach().clone()
-        else:
-            thirds.setdefault(src, []).append(port_state_dict[dst].detach())
-    for src, parts in thirds.items():
-        out[src] = torch.cat(parts, dim=0)
-    return out
+    in_proj).  Buffers of the quantized tiers (scales, folds) are left out."""
+    return _upstream(bevformer_key_map(cfg), port_state_dict)
+
+
+def load_bevdet_checkpoint(model_or_cfg, state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """An upstream-layout BEVDet `state_dict` -> the port's state_dict for
+    `BEVDet(cfg)`, as `load_bevformer_checkpoint` is for BEVFormer (strict
+    both ways, float32, scales calibrated after loading)."""
+    cfg = _config_of(model_or_cfg, BEVDetConfig, "load_bevdet_checkpoint")
+    return _load(bevdet_key_map(cfg), state_dict, "load_bevdet_checkpoint", cfg.name)
+
+
+def bevdet_upstream_layout(cfg: BEVDetConfig, port_state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """`load_bevdet_checkpoint`'s inverse: a port-layout BEVDet state_dict's
+    floating-point tensors under their upstream keys."""
+    return _upstream(bevdet_key_map(cfg), port_state_dict)
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:

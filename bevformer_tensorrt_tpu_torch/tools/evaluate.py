@@ -24,7 +24,7 @@ import json
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import numpy as np
 
@@ -68,18 +68,54 @@ class EvalRun:
         return metrics
 
 
+def pipelined_loop(frames: NuScenesFrames, indices: Sequence[int], dispatch: Callable,
+                   finish: Callable, pipelined: bool = True) -> List[float]:
+    """Drive `frames` through `dispatch(frame) -> pending` and
+    `finish(frame, pending)`, in order; returns the latencies (seconds, the
+    time between two finished frames).  A one-thread prefetcher loads frame
+    t+1 while frame t runs.  Pipelined, frame t is finished after frame t+1
+    is dispatched, so the host's work on frame t (its readback and decode)
+    overlaps the card's work on frame t+1; serial, each frame is finished
+    before the next is dispatched."""
+    n = len(indices)
+    latencies: List[float] = []
+    pending = None
+    with ThreadPoolExecutor(max_workers=1) as prefetch:
+        t_last = time.perf_counter()
+        fut = prefetch.submit(frames.frame, indices[0]) if n else None
+        for step in range(n):
+            f = fut.result()
+            if step + 1 < n:
+                fut = prefetch.submit(frames.frame, indices[step + 1])
+            current = (f, dispatch(f))
+            if not pipelined:
+                pending, current = current, None
+            if pending is not None:
+                finish(*pending)
+                now = time.perf_counter()
+                latencies.append(now - t_last)
+                t_last = now
+            pending = current
+            if step % 100 == 0:
+                print(f"[{step}/{n}]", file=sys.stderr)
+        if pending is not None:
+            finish(*pending)
+            latencies.append(time.perf_counter() - t_last)
+    return latencies
+
+
 def eval_loop(engine: BEVFormerEngine, frames: NuScenesFrames, indices: Sequence[int],
               pipelined: bool = True) -> EvalRun:
     """Run the frames through the engine from a fresh temporal state, decode
-    and convert them.  A one-thread prefetcher loads frame t+1 while frame t
-    runs.  Pipelined, frame t's readback is started right after its
-    dispatch and it is decoded after frame t+1 is dispatched, so the
-    host's decode overlaps the card's next frame; serial, each frame is
-    read back and decoded before the next is dispatched.  Both give the
-    same detections.  A latency is the time between two decoded frames."""
+    and convert them (`pipelined_loop`: frame t's readback is started right
+    after its dispatch and it is decoded after frame t+1 is dispatched, or,
+    serial, before).  Both give the same detections."""
     coder = NMSFreeCoder(num_classes=engine.cfg.num_classes)
     run = EvalRun()
-    n = len(indices)
+
+    def dispatch(f):
+        classes, coords = engine.infer_frame(f.image, f.can_bus, f.lidar2img, f.scene_token)
+        return engine.readback(classes, coords)
 
     def finish(f, readback):
         classes, coords = readback.result()
@@ -89,29 +125,7 @@ def eval_loop(engine: BEVFormerEngine, frames: NuScenesFrames, indices: Sequence
         run.gt_boxes.extend(gt_to_eval_boxes(f.sample_token, f.gt_boxes, f.gt_labels))
 
     engine.reset()
-    pending = None
-    with ThreadPoolExecutor(max_workers=1) as prefetch:
-        t_last = time.perf_counter()
-        fut = prefetch.submit(frames.frame, indices[0]) if n else None
-        for step in range(n):
-            f = fut.result()
-            if step + 1 < n:
-                fut = prefetch.submit(frames.frame, indices[step + 1])
-            classes, coords = engine.infer_frame(f.image, f.can_bus, f.lidar2img, f.scene_token)
-            current = (f, engine.readback(classes, coords))
-            if not pipelined:
-                pending, current = current, None
-            if pending is not None:
-                finish(*pending)
-                now = time.perf_counter()
-                run.latencies.append(now - t_last)
-                t_last = now
-            pending = current
-            if step % 100 == 0:
-                print(f"[{step}/{n}]", file=sys.stderr)
-        if pending is not None:
-            finish(*pending)
-            run.latencies.append(time.perf_counter() - t_last)
+    run.latencies = pipelined_loop(frames, indices, dispatch, finish, pipelined)
     return run
 
 

@@ -1,11 +1,14 @@
-"""Where a BEVFormer frame's time goes on the card.
+"""Where a BEVFormer or BEVDet frame's time goes on the card.
 
     python -m bevformer_tensorrt_tpu_torch.tools.profile_frame [--model tiny]
         [--dtype float32] [--frames 5] [--quant none] [--exclude PATTERN ...]
         [--out FILE]
 
 Runs BEVFormer tiny, small or base with seeded weights on synthetic frames of one scene through
-`BEVFormerEngine`: first the host-clock frame latency (each frame ends in a
+`BEVFormerEngine`, or with `--model bevdet` BEVDet-R50 through `BEVDetEngine`
+(the `interval` splat, ranks of a synthetic six-camera rig padded to 400000
+points, the decode on the card; the host's Scale-NMS is not in the frame):
+first the host-clock frame latency (each frame ends in a
 synchronise), then a `torch.profiler` window over the same number of
 frames.  Prints the device time per frame by kernel family and the top
 kernels, the device busy share (the union of the kernels' intervals over
@@ -29,9 +32,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ..configs import bevformer as configs
+from ..configs.bevdet import bevdet_r50
 from .. import ops
+from ..models.necks.view_transformer import get_lidar_coor, voxel_pooling_prepare
+from ..runtime.bevdet_engine import BEVDetEngine
 from ..runtime.engine import BEVFormerEngine
-from ..runtime.synthetic import synthetic_frames
+from ..runtime.synthetic import bevdet_rig, synthetic_frames
 from .path_diff import QUANT, quant_overrides
 
 FAMILIES = (  # first match wins
@@ -51,6 +57,7 @@ FAMILIES = (  # first match wins
     # float2) kernels come only from the FFT convolutions in this model
     ("convolution", r"conv|fprop|dgrad|wgrad|implicit|winograd|fft|cudnn|nchw|nhwc|cf32|float2"),
     ("matmul", r"gemm|nvjet|cutlass|splitK|Kernel2"),
+    ("scan", r"scan|cumsum"),
     ("sort / index", r"sort|radix|scatter|gather|index|Indexing|topk"),
     ("grid_sample", r"grid_sampler"),
     ("reduction / norm", r"reduce|norm|softmax|Norm"),
@@ -75,9 +82,26 @@ def busy_ms(intervals):
     return total / 1e3
 
 
+def bevdet_frames(over, count):
+    """`infer(i)`: frame i of `count` seeded images through a BEVDet-R50
+    engine on a synthetic rig (calibrated, `max` over two frames, under a
+    quantized tier)."""
+    cfg = bevdet_r50(**over)
+    rng = np.random.default_rng(0)
+    s2e, intr = bevdet_rig(cfg.num_cams, cfg.input_h, cfg.input_w, rng)
+    ranks = voxel_pooling_prepare(cfg, get_lidar_coor(cfg, s2e, intr), pad_to=400000,
+                                  pad_intervals_to=cfg.bev_h * cfg.bev_w)
+    engine = BEVDetEngine(cfg, ranks, seed=0)
+    images = [rng.standard_normal((1, cfg.num_cams, 3, cfg.input_h, cfg.input_w))
+              .astype(np.float32) for _ in range(count)]
+    if cfg.quant:
+        engine.calibrate(images[:2], method="max")
+    return lambda i: engine.infer_frame(images[i])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", default="tiny", choices=("tiny", "small", "base"))
+    ap.add_argument("--model", default="tiny", choices=("tiny", "small", "base", "bevdet"))
     ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--quant", default="none", choices=tuple(QUANT))
@@ -92,21 +116,29 @@ def main(argv=None):
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60,
                           check=True).stdout.strip().splitlines()[0]
-    cfg = getattr(configs, f"bevformer_{args.model}")(
-        dtype=args.dtype, **quant_overrides(args.quant, args.exclude))
-    engine = BEVFormerEngine(cfg, seed=0)
-    frames = synthetic_frames(cfg, np.random.default_rng(0), ["scene"] * (2 * args.frames + 2))
-    if cfg.quant:
-        engine.calibrate(frames[:2], method="max")
-    for f in frames[:2]:  # warm-up
-        engine.infer_frame(**f)
+    over = dict(dtype=args.dtype, **quant_overrides(args.quant, args.exclude))
+    count = 2 * args.frames + 2
+    if args.model == "bevdet":
+        infer = bevdet_frames(over, count)
+    else:
+        cfg = getattr(configs, f"bevformer_{args.model}")(**over)
+        engine = BEVFormerEngine(cfg, seed=0)
+        frames = synthetic_frames(cfg, np.random.default_rng(0), ["scene"] * count)
+        if cfg.quant:
+            engine.calibrate(frames[:2], method="max")
+
+        def infer(i):
+            engine.infer_frame(**frames[i])
+
+    for i in range(2):  # warm-up
+        infer(i)
     torch.cuda.synchronize()
 
     lat = []
     torch.cuda.reset_peak_memory_stats()
-    for f in frames[2:2 + args.frames]:
+    for i in range(2, 2 + args.frames):
         t0 = time.perf_counter()
-        engine.infer_frame(**f)
+        infer(i)
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
@@ -114,8 +146,8 @@ def main(argv=None):
     ops.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for f in frames[2 + args.frames:]:
-            engine.infer_frame(**f)
+        for i in range(2 + args.frames, count):
+            infer(i)
             torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     n = args.frames

@@ -3,6 +3,7 @@
     python -m bevformer_tensorrt_tpu_torch.tools.train <micro|tiny|small|base> --infos <infos.pkl>
         [--data-root DIR] [--temporal [--queue-length 4]] [--encoder-layers N]
         [--decoder-layers N] [--steps 1000] [--lr 2e-4] [--warmup N]
+        [--quant-scales scales.npz]
         [--out checkpoints/bevformer.pth] [--resume FILE | --checkpoint FILE]
         [--save-every 1000] [--log-every 10] [--no-augment] [--aug-scales S ...]
         [--device cuda]
@@ -17,12 +18,19 @@ without gradients).  A set of at most 64 frames (not with `--temporal`) is
 an overfit run: every batch is kept on the device once and the order
 reshuffled (seed 1).  Float32, as the JAX trainer.
 
-`--out` writes an upstream-layout state_dict (`.pth`), which
-`tools/evaluate.py --checkpoint` reads; `--resume` and `--checkpoint` read
-one.  Left out (the JAX CLI has them): `--quant-scales` (QAT),
-`--distributed`, and `--msda-impl` (on the card the kernel forward is always
-used, the JAX `sorted` choice; the plain path is the CPU's).  Runs on CUDA
-unless `--device cpu` is given.
+`--quant-scales` (a `.npz` of `tools/calibrate.py`, its `.policy.json`
+beside it) is quantization-aware training, the reference's QAT fine-tune:
+the model is built with `quant=True` under the scales' policy, the scales
+are attached to its QDQ sites (fixed; no int8 weights are folded), and the
+default learning rate is 1e-6 (an explicit `--lr` wins).
+
+`--out` writes an upstream-layout state_dict (`.pth`) of the weights alone,
+which `tools/evaluate.py --checkpoint` reads (with `--quant-scales ...
+--quant int8` it folds the int8 weights anew from them); `--resume` and
+`--checkpoint` read one.  Left out (the JAX CLI has them): `--distributed`,
+and `--msda-impl` (on the card the kernel forward is always used, the JAX
+`sorted` choice; the plain path is the CPU's).  Runs on CUDA unless
+`--device cpu` is given.
 """
 from __future__ import annotations
 
@@ -40,6 +48,9 @@ from ..configs import bevformer as configs
 from ..data.nuscenes import IMG_NORM_CAFFE, IMG_NORM_PYTORCH, NuScenesFrames, TemporalClipSampler
 from ..data.transforms import MultiViewTrainAugment, RandomScaleImage
 from ..models.modules.encoder import cam_budget_overflow
+from ..quant.fold import attach_quant_scales
+from ..quant.observers import CalibrationResult
+from ..quant.policy import load_policy
 from ..runtime.engine import resolve_device
 from ..runtime.torch_import import (
     load_bevformer_checkpoint,
@@ -148,7 +159,7 @@ def main(argv=None) -> TrainResult:
     drive the tool from Python."""
     ap = argparse.ArgumentParser(
         description=__doc__.splitlines()[0],
-        epilog="Not ported from the JAX CLI: --quant-scales (QAT), --distributed, --msda-impl.")
+        epilog="Not ported from the JAX CLI: --distributed, --msda-impl.")
     ap.add_argument("model", choices=MODELS)
     ap.add_argument("--infos", required=True)
     ap.add_argument("--data-root", default=None)
@@ -165,7 +176,12 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--decoder-layers", type=int, default=None,
                     help="override the decoder depth (smoke runs, ablations)")
     ap.add_argument("--steps", type=int, default=1000)
-    ap.add_argument("--lr", type=float, default=None, help="peak learning rate (default 2e-4)")
+    ap.add_argument("--quant-scales", default=None,
+                    help="quantization-aware training from these calibrated scales (.npz of "
+                         "tools/calibrate.py, with its policy)")
+    ap.add_argument("--lr", type=float, default=None,
+                    help="peak learning rate (default 2e-4; 1e-6 with --quant-scales, the "
+                         "reference's QAT recipe)")
     ap.add_argument("--warmup", type=int, default=None,
                     help="linear warmup steps (default min(500, steps // 5))")
     ap.add_argument("--out", default="checkpoints/bevformer.pth",
@@ -185,6 +201,9 @@ def main(argv=None) -> TrainResult:
     device = resolve_device(args.device)
     over = {k: v for k, v in (("encoder_layers", args.encoder_layers),
                               ("decoder_layers", args.decoder_layers)) if v is not None}
+    qat = args.quant_scales is not None
+    if qat:  # the QDQ tier under the policy the scales were saved with
+        over.update(quant=True, quant_exclude=load_policy(args.quant_scales))
     cfg = getattr(configs, f"bevformer_{args.model}")(**over)
     augment = None
     if not args.no_augment:
@@ -193,7 +212,7 @@ def main(argv=None) -> TrainResult:
     frames = NuScenesFrames(args.infos, args.data_root, img_norm=image_norm(args.model),
                             target_hw=(cfg.img_h, cfg.img_w), augment=augment)
     max_gt = min(MAX_GT, cfg.num_query)
-    lr = args.lr if args.lr is not None else 2e-4
+    lr = args.lr if args.lr is not None else (1e-6 if qat else 2e-4)
     warmup = args.warmup if args.warmup is not None else min(500, args.steps // 5)
     model, optimizer = init_train_state(cfg, device, learning_rate=lr, total_steps=args.steps,
                                         warmup_steps=warmup)
@@ -201,6 +220,11 @@ def main(argv=None) -> TrainResult:
     if start_from:
         model.load_state_dict(load_bevformer_checkpoint(cfg, load_torch_checkpoint(start_from)),
                               strict=True)
+    if qat:
+        scales = CalibrationResult.load(args.quant_scales).scales
+        attach_quant_scales(model, scales)
+        print(f"QAT: {len(scales)} scales from {args.quant_scales}, policy "
+              f"{list(cfg.quant_exclude)}", file=sys.stderr)
     model.train()
 
     it = (temporal_batch_iter(frames, args.queue_length, max_gt) if args.temporal

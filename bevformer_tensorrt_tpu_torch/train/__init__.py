@@ -6,6 +6,7 @@ from .losses import bbox_l1_cost, focal_cls_cost, normalize_bbox, sigmoid_focal_
 from .step import (
     Optimizer,
     bevformer_detr_loss,
+    check_quant_scales,
     init_train_state,
     loss_fn,
     temporal_loss_fn,
@@ -18,6 +19,7 @@ __all__ = [
     "assign_levels",
     "bbox_l1_cost",
     "bevformer_detr_loss",
+    "check_quant_scales",
     "focal_cls_cost",
     "hungarian_assign",
     "init_train_state",

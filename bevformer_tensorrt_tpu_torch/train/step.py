@@ -19,6 +19,15 @@ Batch dict (leading dim B), tensors on the model's device:
   lidar2img  [B, 1, cams, 4, 4]        ([B, T, 1, cams, 4, 4])
   gt_boxes   [B, max_gt, 9]            (the last frame's)
   gt_labels  [B, max_gt] int, -1 = padding
+
+Quantization-aware training (the JAX steps' `quant_vars`) is a model built
+with `quant=True` whose QDQ sites hold their calibrated scales
+(`quant.fold.attach_quant_scales`): activations are fake-quantized with
+those fixed scales (buffers, which the optimizer never sees), weights per
+output channel from the live weight, and gradients pass by the
+straight-through rule.  `check_quant_scales` refuses a quantized model with a
+live site that has no scale, where "QAT" would silently train floating point;
+a step runs it on an optimizer's first step (the scales are fixed after).
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ import torch.nn as nn
 
 from ..configs.bevformer import BEVFormerConfig
 from ..models.detectors.bevformer import BEVFormer
+from ..quant.calibrate import qdq_sites
 from ..weights import init_weights
 from .assigner import assign_levels
 from .losses import bbox_l1_cost, focal_cls_cost, l1_loss, normalize_bbox, sigmoid_focal_loss
@@ -229,7 +239,23 @@ class Optimizer:
         self.count = t
 
 
+def check_quant_scales(model: nn.Module) -> None:
+    """For a model built with `quant`, raise unless every live QDQ site
+    (one the policy did not switch off) holds a scale: a site without one is
+    the identity, and the step would train floating point there."""
+    if not getattr(model.cfg, "quant", False):
+        return
+    missing = [name for name, site in qdq_sites(model).items() if site.scale is None]
+    if missing:
+        raise ValueError(
+            f"quantization-aware training: {len(missing)} live QDQ sites have no scale "
+            f"(first: {missing[0]}); attach calibrated scales with "
+            "quant.fold.attach_quant_scales, or exclude the sites in the policy")
+
+
 def _step(fn, model: BEVFormer, optimizer: Optimizer, batch) -> Dict:
+    if optimizer.count == 0:
+        check_quant_scales(model)
     optimizer.zero_grad()
     loss, metrics = fn(model, batch)
     loss.backward()
@@ -238,7 +264,8 @@ def _step(fn, model: BEVFormer, optimizer: Optimizer, batch) -> Dict:
 
 
 def train_step(model: BEVFormer, optimizer: Optimizer, batch) -> Dict:
-    """One single-frame step: loss, backward, update.  Returns the metrics
+    """One single-frame step: loss, backward, update (QAT for a model built
+    with `quant=True`, which `check_quant_scales` checks on the first step).  Returns the metrics
     as device tensors: loss, loss_cls, loss_bbox, num_pos and the matching
     row2col [B, levels, max_gt]."""
     return _step(loss_fn, model, optimizer, batch)

@@ -1,5 +1,5 @@
-"""Weights of the port: conversion from the JAX package's flax variables, and
-a seeded initialisation.
+"""Weights of the port: conversion from the JAX package's flax variables
+(BEVFormer's and BEVDet's trees), and a seeded initialisation.
 
 The port names every submodule as the flax module of the same role, so a
 flax path `a/b/kernel` becomes the state_dict key `a.b.weight`:
@@ -27,6 +27,7 @@ import torch
 import torch.nn as nn
 
 from .models.backbones.resnet import DeformConv2d
+from .models.heads.centerpoint_head import HEATMAP_PRIOR
 from .models.layers import FrozenBN, LearnedPositionalEncoding, QConv, QDense
 
 TABLES = ("bev_embedding", "query_embedding", "cams_embeds", "level_embeds",
@@ -88,7 +89,7 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded initialisation, the JAX package's initialisers in kind:
     LeCun-normal dense and conv kernels, zero biases (the classification
-    output's prior -4.595), unit norms, unit-normal embedding tables and
+    output's prior -4.595, BEVDet's heatmap prior -2.19), unit norms, unit-normal embedding tables and
     uniform [0, 1) positional tables.  Draws on the CPU from `generator`,
     then copies into the model's parameters, so a seed gives the same
     weights on every device."""
@@ -105,7 +106,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             fill(m.weight, normal(1.0 / math.sqrt(fan_in)))
             if getattr(m, "bias", None) is not None:
                 cls_out = name.split(".")[-1] == "out" and ".cls_branch" in f".{name}"
-                m.bias.fill_(-4.595 if cls_out else 0.0)
+                heatmap = name.endswith("pts_bbox_head.heatmap.conv2")
+                m.bias.fill_(-4.595 if cls_out else HEATMAP_PRIOR if heatmap else 0.0)
         elif isinstance(m, (nn.LayerNorm, FrozenBN)):
             m.weight.fill_(1.0)
             m.bias.fill_(0.0)

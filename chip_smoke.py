@@ -76,7 +76,8 @@ Phases (any failure exits non-zero before the result lines):
      flash, 26 int8-table DCN); peak device memory.
  12. The loader-driven entry points at full width: a generated nuScenes-
      layout set of 4 frames in 2 scenes, 6 cameras of 1600x900
-     (`tools/make_synthetic_nuscenes.py`), and a seeded upstream-layout
+     (`tools/make_synthetic_nuscenes.py`, written once for phases 12-15),
+     and a seeded upstream-layout
      base checkpoint.  `tools/evaluate.py base` in float32 and in bfloat16
      through its `main`: 18 MSDA and 6 flash launches a frame, and 26
      im2col (float32) or 26 fused DCN and 26 gather tables (bfloat16); the
@@ -101,15 +102,40 @@ Phases (any failure exits non-zero before the result lines):
      same seeded weights: the same matching on every decoder level, the loss
      within 1e-4, each parameter's gradient within TRAIN_GRAD_REL_L2, the
      plain path under 1e-7 image noise measured beside it; 20 overfit steps
-     on the kernel path (launch counts around them, the last loss below the
-     first; each step split into forward, backward and optimizer, and peak
-     memory) and 5 on the plain path; one temporal step of a 4-frame clip
+     on the kernel path with the train CLI's warmup (launch counts around
+     them, the last loss below the first; each step split into forward,
+     backward and optimizer, and peak memory) and 5 on the plain path; one temporal step of a 4-frame clip
      (4 forwards of launches, a loss other than the last frame's alone);
      `tools/train.py tiny` for 5 steps, then `tools/evaluate.py tiny
      --checkpoint` on its `.pth`; one `tools/train.py small` step with one
      encoder and one decoder layer (the full-width R101-DCN backbone, 26 DCN
      launches, every DCN's weight and offset conv given a gradient).
- 14. One JSON line of per-kernel numbers, the nvidia-smi line of the card,
+ 14. Quantization-aware training of tiny (float32) from the train phase's
+     `.pth` on the same set: `tools/calibrate.py tiny --infos` (`max`, TSA's
+     tables excluded); on one loader frame the QDQ step's loss against the
+     floating-point step's (they must differ), the kernel path's QDQ step
+     against the plain path's with every QDQ site's rounding held at the
+     plain path's decisions (each site's input within QAT_SITE_REL of the
+     plain path's, the 12 MSDA-fed and 6 flash-fed sites among them; the
+     same matching, the loss within 1e-4, each gradient within
+     TRAIN_GRAD_REL_L2; the free-running paths' difference recorded beside
+     the plain path's with one ulp added to every MSDA output: a rounding
+     flip is a whole quantization step), 5 QAT steps
+     timed (forward, backward, optimizer); `tools/train.py tiny
+     --quant-scales` for 5 steps, then `tools/evaluate.py tiny --quant int8`
+     of its `.pth` (202 int8 products a frame), every int8 layer's fold that
+     of the QAT weights and some unlike the calibration-time fold.
+ 15. BEVDet-R50 at full width (6 x 256x704 crops of the 1600x900 views,
+     128x128 BEV) from a seeded upstream-layout `.pth` on the same set:
+     `tools/bevdet/evaluate.py` in float32 and bfloat16 (no launch of the
+     TPU table's kernels: cuDNN's convolutions and the stock-op splat; the
+     pipelined loop's detections a serial loop's; the loop timed over 40
+     frames, the frame latency over 11, the Scale-NMS host ms), one frame's
+     float32 heads against the CPU's, the `interval` and `scatter` splats
+     against a float64 splat; `tools/bevdet/calibrate.py` (`max`, the 4
+     frames) then `--quant int8`: 89 int8 products a frame, one frame bit
+     for bit the plain product's, the product timed at every shape it took.
+ 16. One JSON line of per-kernel numbers, the nvidia-smi line of the card,
      and the final `{"ok": true, "device": ...}` line.
 Ahead of phase 10, three phases of their own:
   a. The DCN op from the int8 table (the fused kernel, float32 and
@@ -141,6 +167,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import pickle
 import subprocess
@@ -153,6 +180,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from bevformer_tensorrt_tpu_torch.configs.bevdet import bevdet_r50
 from bevformer_tensorrt_tpu_torch.configs.bevformer import (
     bevformer_base,
     bevformer_small,
@@ -165,6 +193,7 @@ from bevformer_tensorrt_tpu_torch.data.nuscenes import (
     load_image,
 )
 from bevformer_tensorrt_tpu_torch.models.backbones.resnet import DeformConv2d
+from bevformer_tensorrt_tpu_torch.models.detectors.bevdet import BEVDet
 from bevformer_tensorrt_tpu_torch.models.detectors.bevformer import BEVFormer
 from bevformer_tensorrt_tpu_torch.models.layers import QConv, QDense
 from bevformer_tensorrt_tpu_torch.models.modules.encoder import cam_budget_overflow
@@ -173,17 +202,27 @@ from bevformer_tensorrt_tpu_torch.ops import attention as attn_ops
 from bevformer_tensorrt_tpu_torch.ops import dcn as dcn_ops
 from bevformer_tensorrt_tpu_torch.ops import int8_matmul as int8_ops
 from bevformer_tensorrt_tpu_torch.ops import msda as msda_ops
-from bevformer_tensorrt_tpu_torch.quant.fold import attach_quant_scales
+from bevformer_tensorrt_tpu_torch.ops.bev_pool import bev_pool_v2
+from bevformer_tensorrt_tpu_torch.quant.fold import attach_quant_scales, quantize_weight
+from bevformer_tensorrt_tpu_torch.quant.observers import CalibrationResult
+from bevformer_tensorrt_tpu_torch.quant.policy import load_policy
+from bevformer_tensorrt_tpu_torch.quant.qdq import QDQ
+from bevformer_tensorrt_tpu_torch.runtime.bevdet_engine import BEVDetEngine
 from bevformer_tensorrt_tpu_torch.runtime.engine import BEVFormerEngine
 from bevformer_tensorrt_tpu_torch.runtime.synthetic import synthetic_frames
 from bevformer_tensorrt_tpu_torch.ops import gather_probe as probe_ops
 from bevformer_tensorrt_tpu_torch.runtime.torch_import import (
+    bevdet_upstream_layout,
     load_bevformer_checkpoint,
+    load_torch_checkpoint,
     upstream_layout,
 )
 from bevformer_tensorrt_tpu_torch.native import normalize_pad_chw_native
 from bevformer_tensorrt_tpu_torch.tools import calibrate, evaluate, kernel_bench
 from bevformer_tensorrt_tpu_torch.tools import train as train_cli
+from bevformer_tensorrt_tpu_torch.tools.bevdet import calibrate as bevdet_calibrate
+from bevformer_tensorrt_tpu_torch.tools.bevdet import evaluate as bevdet_evaluate
+from bevformer_tensorrt_tpu_torch.tools.bevdet.evaluate import checkpoint_state_dict
 from bevformer_tensorrt_tpu_torch.tools import kernel_cases as kc
 from bevformer_tensorrt_tpu_torch.tools.kernel_cases import (
     DCN_INT8_SHAPES,
@@ -206,7 +245,13 @@ from bevformer_tensorrt_tpu_torch.tools.path_diff import (
     rel_errors,
     run_frames,
 )
-from bevformer_tensorrt_tpu_torch.train import init_train_state, loss_fn, temporal_train_step
+from bevformer_tensorrt_tpu_torch.train import (
+    Optimizer,
+    check_quant_scales,
+    init_train_state,
+    loss_fn,
+    temporal_train_step,
+)
 from bevformer_tensorrt_tpu_torch.weights import init_weights
 
 REPO = Path(__file__).resolve().parent
@@ -903,10 +948,10 @@ def counts_of(**named):
     return tuple(named.get(n, 0) for n in COUNT_NAMES)
 
 
-def record_gemm_shapes(engine, frame):
-    """One frame with the int8 product's wrapper logging its (M, K, N):
-    the shapes the main path gives it, and how often.  Also counts the
-    forward calls of the int8 dense and conv layers."""
+def gemm_shapes_of(model, run):
+    """`run()` (one frame of `model`) with the int8 product's wrapper
+    logging its (M, K, N): the shapes the main path gives it, and how often.
+    Also counts the forward calls of the int8 dense and conv layers."""
     shapes = collections.Counter()
     calls = []
     wrapper = int8_ops.int8_matmul
@@ -917,19 +962,27 @@ def record_gemm_shapes(engine, frame):
 
     logging.launches = 0  # the wrapper counts on whatever carries its name
 
-    layers = [m for m in engine.model.modules() if isinstance(m, (QDense, QConv))]
+    layers = [m for m in model.modules() if isinstance(m, (QDense, QConv))]
     hooks = [m.register_forward_hook(lambda *a: calls.append(1)) for m in layers
              if m.mode == "int8"]
     int8_ops.int8_matmul = logging
     try:
-        engine.reset()
-        engine.infer_frame(**frame)
+        run()
         torch.cuda.synchronize()
     finally:
         int8_ops.int8_matmul = wrapper
         for h in hooks:
             h.remove()
     return shapes, len(calls), sum(m.mode != "int8" for m in layers)
+
+
+def record_gemm_shapes(engine, frame):
+    """`gemm_shapes_of` one BEVFormer frame from a fresh temporal state."""
+    def run():
+        engine.reset()
+        engine.infer_frame(**frame)
+
+    return gemm_shapes_of(engine.model, run)
 
 
 def mean_coords_diff(a, b):
@@ -1387,67 +1440,62 @@ def eval_base(card, root, ckpt, dtype):
                                   serial=[x * 1e3 for x in serial.latencies]))
 
 
-def phase_eval(card):
-    """The loader-driven entry points at full width on a generated set of 4
-    frames in 2 scenes, 6 cameras of 1600x900 (`tools/make_synthetic_nuscenes.py`,
-    seed 0): `tools/evaluate.py base` from a seeded upstream-layout checkpoint
-    in float32 and bfloat16, then `tools/calibrate.py tiny --infos` and
-    `tools/evaluate.py tiny --quant int8` from those scales."""
+def phase_eval(card, root, work):
+    """The loader-driven entry points at full width on the generated set
+    `root` (4 frames in 2 scenes, 6 cameras of 1600x900,
+    `tools/make_synthetic_nuscenes.py`, seed 0): `tools/evaluate.py base`
+    from a seeded upstream-layout checkpoint in float32 and bfloat16, then
+    `tools/calibrate.py tiny --infos` and `tools/evaluate.py tiny --quant
+    int8` from those scales."""
     res = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
-        root = Path(tmp) / "set"
-        t0 = time.perf_counter()
-        subprocess.run([sys.executable, str(REPO / "tools" / "make_synthetic_nuscenes.py"),
-                        str(root), "--frames", str(EVAL_FRAMES)],
-                       check=True, capture_output=True, timeout=300)
-        cfg = bevformer_base()
-        model = BEVFormer(cfg)
-        init_weights(model, torch.Generator().manual_seed(0))
-        with torch.no_grad():
-            for m in model.modules():
-                if isinstance(m, DeformConv2d):
-                    m.conv_offset.weight.mul_(OFFSET_CONV_SCALE)
-        ckpt = Path(tmp) / "base_upstream.pth"
-        torch.save(upstream_layout(cfg, model.state_dict()), ckpt)
-        del model
-        res["setup_s"] = time.perf_counter() - t0
-        log(f"eval: {EVAL_FRAMES} frames of 6 x 1600x900 JPEGs and a seeded base checkpoint "
-            f"written in {res['setup_s']:.1f} s")
-        for dtype in ("float32", "bfloat16"):
-            res[f"base_{dtype}"] = eval_base(card, root, ckpt, dtype)
+    t0 = time.perf_counter()
+    cfg = bevformer_base()
+    model = BEVFormer(cfg)
+    init_weights(model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, DeformConv2d):
+                m.conv_offset.weight.mul_(OFFSET_CONV_SCALE)
+    ckpt = work / "base_upstream.pth"
+    torch.save(upstream_layout(cfg, model.state_dict()), ckpt)
+    del model
+    res["setup_s"] = time.perf_counter() - t0
+    log(f"eval: a seeded base checkpoint written in {res['setup_s']:.1f} s")
+    for dtype in ("float32", "bfloat16"):
+        res[f"base_{dtype}"] = eval_base(card, root, ckpt, dtype)
 
-        infos = str(root / "nuscenes_infos_synthetic.pkl")
-        scales = str(Path(tmp) / "tiny_scales.npz")
-        t0 = time.perf_counter()
-        calibrate.main(["tiny", "--infos", infos, "--data-root", str(root), "--method", "max",
-                        "--length", str(EVAL_FRAMES), "--exclude", "self_attn/msda_tables",
-                        "--out", scales])
-        calib_s = time.perf_counter() - t0
-        reset_launch_counts()
-        out = evaluate.main(["tiny", "--infos", infos, "--data-root", str(root),
-                             "--quant-scales", scales, "--quant", "int8"])
-        torch.cuda.synchronize()
-        counts = launch_counts()
-        want = tuple(EVAL_FRAMES * n for n in counts_of(msda=3, int8_gemm=202, msda_int8=9,
-                                                        flash_int8=6))
-        log(f"eval tiny int8 main path: calibrated through the loader in {calib_s:.1f} s; "
-            f"launches over {EVAL_FRAMES} frames {dict(zip(COUNT_NAMES, counts))}")
-        if counts != want:
-            raise AssertionError(f"eval tiny int8: expected {want} launches, got {counts}")
-        if not all(np.isfinite(v) for v in out.metrics.values()):
-            raise AssertionError(f"eval tiny int8: metrics {out.metrics}")
-        timed = timed_loop(out.engine, out.frames, out.indices, out.run.detections, True,
-                           "eval tiny int8 pipelined, repeated")
-        log(f"eval tiny int8 on {card}: eval loop {middle_mean_ms(timed.latencies):.2f} ms a "
-            f"frame over {len(timed.latencies)} frames (median "
-            f"{np.median(timed.latencies) * 1e3:.2f})")
-        res["tiny_int8"] = dict(launches=dict(zip(COUNT_NAMES, counts)), calibrate_s=calib_s,
-                                timed_frames=len(timed.latencies),
-                                pipelined_ms=middle_mean_ms(timed.latencies),
-                                pipelined_median_ms=float(np.median(timed.latencies) * 1e3),
-                                metrics=out.metrics)
-        del out
-        torch.cuda.empty_cache()
+    infos = str(root / "nuscenes_infos_synthetic.pkl")
+    scales = str(work / "tiny_scales.npz")
+    t0 = time.perf_counter()
+    calibrate.main(["tiny", "--infos", infos, "--data-root", str(root), "--method", "max",
+                    "--length", str(EVAL_FRAMES), "--exclude", "self_attn/msda_tables",
+                    "--out", scales])
+    calib_s = time.perf_counter() - t0
+    reset_launch_counts()
+    out = evaluate.main(["tiny", "--infos", infos, "--data-root", str(root),
+                         "--quant-scales", scales, "--quant", "int8"])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = tuple(EVAL_FRAMES * n for n in counts_of(msda=3, int8_gemm=202, msda_int8=9,
+                                                    flash_int8=6))
+    log(f"eval tiny int8 main path: calibrated through the loader in {calib_s:.1f} s; "
+        f"launches over {EVAL_FRAMES} frames {dict(zip(COUNT_NAMES, counts))}")
+    if counts != want:
+        raise AssertionError(f"eval tiny int8: expected {want} launches, got {counts}")
+    if not all(np.isfinite(v) for v in out.metrics.values()):
+        raise AssertionError(f"eval tiny int8: metrics {out.metrics}")
+    timed = timed_loop(out.engine, out.frames, out.indices, out.run.detections, True,
+                       "eval tiny int8 pipelined, repeated")
+    log(f"eval tiny int8 on {card}: eval loop {middle_mean_ms(timed.latencies):.2f} ms a "
+        f"frame over {len(timed.latencies)} frames (median "
+        f"{np.median(timed.latencies) * 1e3:.2f})")
+    res["tiny_int8"] = dict(launches=dict(zip(COUNT_NAMES, counts)), calibrate_s=calib_s,
+                            timed_frames=len(timed.latencies),
+                            pipelined_ms=middle_mean_ms(timed.latencies),
+                            pipelined_median_ms=float(np.median(timed.latencies) * 1e3),
+                            metrics=out.metrics)
+    del out
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1460,6 +1508,10 @@ GRAD_CASES = (("msda", "sca"), ("msda", "tsa"), ("msda", "decoder"), ("msda_int8
               ("flash", "decoder"), ("flash_int8", "decoder"), ("dcn_im2col", "base_s3"),
               ("dcn_fused", "base_s3"), ("dcn_fused_int8", "base_s3"))
 TRAIN_OVERFIT_STEPS = 20
+# the train CLI's warmup rule, min(500, steps // 5): without it the first
+# full-rate AdamW steps throw the loss from 4.5 to 8.5, and with the card's
+# run-to-run nondeterminism the 20th loss ended above or below the first
+TRAIN_OVERFIT_WARMUP = TRAIN_OVERFIT_STEPS // 5
 TRAIN_PLAIN_STEPS = 5
 TRAIN_QUEUE = 4
 TRAIN_LOSS_TOL = 1e-4  # relative, the kernel path's loss against the plain path's
@@ -1621,7 +1673,8 @@ def train_paths(card, dev, root):
 
     # the overfit run on the kernel path, counts around it; the plain path's steps
     model, opt = init_train_state(cfg, dev, seed=0, learning_rate=2e-4,
-                                  total_steps=TRAIN_OVERFIT_STEPS, warmup_steps=0)
+                                  total_steps=TRAIN_OVERFIT_STEPS,
+                                  warmup_steps=TRAIN_OVERFIT_WARMUP)
     reset_launch_counts()
     kernel_run = timed_steps(model, opt, batch, TRAIN_OVERFIT_STEPS)
     counts = launch_counts()
@@ -1640,7 +1693,8 @@ def train_paths(card, dev, root):
     del model, opt
     torch.cuda.empty_cache()
     model, opt = init_train_state(cfg, dev, seed=0, learning_rate=2e-4,
-                                  total_steps=TRAIN_OVERFIT_STEPS, warmup_steps=0)
+                                  total_steps=TRAIN_OVERFIT_STEPS,
+                                  warmup_steps=TRAIN_OVERFIT_WARMUP)
     with plain_versions():
         plain_run = timed_steps(model, opt, batch, TRAIN_PLAIN_STEPS)
     log(f"train tiny plain path on {card}: {TRAIN_PLAIN_STEPS} steps, step "
@@ -1756,20 +1810,468 @@ def train_small_step(card, root, tmp):
     return res
 
 
-def phase_train(card, dev, gen):
+def phase_train(card, dev, gen, root, work):
     """BEVFormer training on the card: the op gradients, the kernel path
     against the plain path, the overfit run, a temporal step, the train CLI
-    round trip and one small step, on a generated full-size set (4 frames of
-    6 x 1600x900)."""
+    round trip and one small step, on the generated set `root` (4 frames of
+    6 x 1600x900).  The train CLI's `.pth` stays in `work` for the QAT
+    phase."""
     res = dict(grads=grad_rows(dev, gen))
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        root = Path(tmp) / "set"
-        subprocess.run([sys.executable, str(REPO / "tools" / "make_synthetic_nuscenes.py"),
-                        str(root), "--frames", str(EVAL_FRAMES)],
-                       check=True, capture_output=True, timeout=300)
-        res.update(train_paths(card, dev, root))
-        res["cli"] = train_cli_round_trip(card, root, tmp)
-        res["small"] = train_small_step(card, root, tmp)
+    res.update(train_paths(card, dev, root))
+    res["cli"] = train_cli_round_trip(card, root, work)
+    res["small"] = train_small_step(card, root, work)
+    return res
+
+
+# ---- phase 14: quantization-aware training ------------------------------------
+
+QAT_STEPS = 5
+# Fake quantization is not smooth: a float32 difference of one ulp can move
+# an activation across a rounding boundary of a QDQ site, a whole step, and
+# the network spreads it, so the free-running kernel path and plain path of
+# a QDQ step need not agree (the phase measures how far one ulp added to
+# every plain MSDA output moves the step).  The check holds every live
+# site's rounding at the plain path's decisions (`rounding`) and compares
+# what the kernels feed the sites: with the codes replayed, each site's input
+# differs from the plain path's only by the float32 error of the kernels
+# one hop upstream (an MSDA or flash output reaches the loss only through the
+# QDQ site on the input of its output projection), which the kernel phases
+# hold to TOL.  QAT_SITE_REL is the bar on every site's input, relative to
+# the plain input's largest magnitude: the kernels' own float32 bar, as their
+# outputs are the inputs that move (on the H100 6.7e-6 at most, at the
+# decoder's flash-fed sites; the median site at 0).  The loss and gradients are held
+# to the floating-point step's bars (TRAIN_LOSS_TOL, TRAIN_GRAD_REL_L2) too.
+QAT_SITE_REL = TOL[torch.float32]
+
+
+def global_rel_l2(got, want):
+    """||got - want|| / ||want|| over every parameter's gradient at once."""
+    num = sum(float((got[n] - w).double().norm() ** 2) for n, w in want.items())
+    return (num / max(sum(float(w.double().norm() ** 2) for w in want.values()), 1e-300)) ** 0.5
+
+
+class _ReplayQuant(torch.autograd.Function):
+    """A QDQ site's output from kept int8 codes; the straight-through
+    backward of `quant.fake_quant` on the site's own input."""
+
+    @staticmethod
+    def forward(ctx, x, scale, codes):
+        ctx.save_for_backward(x, scale)
+        return (codes.float() * scale).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        return g * (x.float().abs() <= 127.0 * scale).to(g.dtype), None, None
+
+
+@contextlib.contextmanager
+def rounding(mode, kept, drift=None):
+    """`record`: every live QDQ site with a scale keeps, call by call in
+    `kept`, its input and the int8 codes it rounds that to; `replay`: each
+    such site returns its kept codes times its scale instead of rounding its
+    own input, and keeps in `drift` (site id -> largest over its calls) how
+    far its input lies from the recorded one, relative to the recorded
+    input's largest magnitude."""
+    original = QDQ.forward
+    served = collections.Counter()
+
+    def forward(site, x):
+        if site.mode != "quant" or site.scale is None:
+            return original(site, x)
+        if mode == "record":
+            xf = x.detach().float().clone()
+            codes = torch.round(xf / site.scale).clamp(-128, 127).to(torch.int8)
+            kept.setdefault(id(site), []).append((xf, codes))
+            return original(site, x)
+        want, codes = kept[id(site)][served[id(site)]]
+        served[id(site)] += 1
+        err = float((x.detach().float() - want).abs().max()
+                    / want.abs().max().clamp_min(1e-30))
+        drift[id(site)] = max(drift.get(id(site), 0.0), err)
+        return _ReplayQuant.apply(x, site.scale, codes), site.scale
+
+    QDQ.forward = forward
+    try:
+        yield
+    finally:
+        QDQ.forward = original
+
+
+@contextlib.contextmanager
+def nudged_msda():
+    """Inside the block every output element of the MSDA op in use lies one
+    ulp above its value (a constant offset: the gradient is unchanged)."""
+    op = msda_ops.multi_scale_deformable_attn
+
+    def nudged(*args, **kwargs):
+        out = op(*args, **kwargs)
+        up = torch.nextafter(out.detach(), torch.full_like(out.detach(), float("inf")))
+        return out + (up - out.detach())
+
+    msda_ops.multi_scale_deformable_attn = nudged
+    try:
+        yield
+    finally:
+        msda_ops.multi_scale_deformable_attn = op
+
+
+def qat_model(cfg, state_dict, scales, dev):
+    """A model of `cfg` from `state_dict` on the card, with `scales`
+    attached to its QDQ sites and no int8 fold (the train CLI's QAT model)."""
+    model = BEVFormer(cfg)
+    model.load_state_dict(state_dict, strict=True)
+    model.to(dev)
+    if scales is not None:
+        attach_quant_scales(model, scales)
+    return model
+
+
+def phase_qat(card, dev, root, work):
+    """Quantization-aware training of tiny (float32) on the generated set,
+    from the train phase's `.pth`: `tools/calibrate.py tiny --infos`
+    (`max`, the 4 frames, TSA's tables excluded); on one loader frame the
+    QDQ step's loss against the floating-point step's (they must differ)
+    and the kernel path's QDQ loss and gradients against the plain path's,
+    every site's rounding held at the plain path's decisions (the
+    floating-point step's bars; the free-running difference recorded), the
+    QAT steps timed; then
+    `tools/train.py tiny --quant-scales` for 5 steps and `tools/evaluate.py tiny --quant int8` of
+    its `.pth`, whose int8 weights must be folded from the QAT weights, not
+    from the weights the scales were calibrated on."""
+    infos = str(root / "nuscenes_infos_synthetic.pkl")
+    pth = work / "tiny_trained.pth"
+    scales_path = str(work / "tiny_qat_scales.npz")
+    t0 = time.perf_counter()
+    calibrate.main(["tiny", "--infos", infos, "--data-root", str(root), "--checkpoint", str(pth),
+                    "--method", "max", "--length", str(EVAL_FRAMES), "--exclude",
+                    "self_attn/msda_tables", "--out", scales_path])
+    calib_s = time.perf_counter() - t0
+    scales = CalibrationResult.load(scales_path).scales
+    cfg = bevformer_tiny(quant=True, quant_exclude=load_policy(scales_path))
+    sd = load_bevformer_checkpoint(cfg, load_torch_checkpoint(str(pth)))
+    frames = set_frames(root, cfg, "tiny")
+    max_gt = min(train_cli.MAX_GT, cfg.num_query)
+    batch = train_cli.to_device(train_cli.frame_batch([frames.frame(0)], max_gt), dev)
+    fp_model = qat_model(bevformer_tiny(), sd, None, dev)
+    fp_loss = step_grads(fp_model, batch)[0]
+    del fp_model
+    model = qat_model(cfg, sd, scales, dev)
+    check_quant_scales(model)
+    reset_launch_counts()
+    k_loss, k_rows, k_grads = step_grads(model, batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != counts_of(msda=12, flash_attn=6):
+        raise AssertionError(f"qat tiny kernel path: launches {counts}")
+    kept, drift = {}, {}
+    with plain_versions(), rounding("record", kept):
+        p_loss, p_rows, p_grads = step_grads(model, batch)
+    with rounding("replay", kept, drift):
+        r_loss, r_rows, r_grads = step_grads(model, batch)
+    del kept
+    with plain_versions(), nudged_msda():
+        u_loss, u_rows, u_grads = step_grads(model, batch)
+    if not abs(k_loss - fp_loss) > 1e-6 * abs(fp_loss):
+        raise AssertionError(f"qat: the QDQ loss {k_loss} is the floating-point loss {fp_loss}")
+    site_names = {id(m): n for n, m in model.named_modules() if isinstance(m, QDQ)}
+    drift = {site_names[i]: e for i, e in drift.items()}
+    names = [n for n in p_grads if not n.endswith(ZERO_GRADIENT)]
+    held = grad_rel_l2(r_grads, p_grads, names)
+    free = grad_rel_l2(k_grads, p_grads, names)
+    ulp = grad_rel_l2(u_grads, p_grads, names)
+    loss_err = abs(r_loss - p_loss) / abs(p_loss)
+    worst = sorted(names, key=lambda n: -held[n])[:5]
+    worst_sites = sorted(drift, key=lambda n: -drift[n])[:5]
+    log(f"qat tiny on {card}: {len(scales)} scales calibrated in {calib_s:.1f} s; QDQ loss "
+        f"{k_loss:.6f} against the floating-point loss {fp_loss:.6f}.  Roundings held at the "
+        f"plain path's: {len(drift)} sites' inputs from the kernels against the plain path's, "
+        f"relative to the largest: max {max(drift.values()):.3e}, median "
+        f"{np.median(list(drift.values())):.3e} (bar {QAT_SITE_REL:.0e}); loss {r_loss:.6f} "
+        f"against plain {p_loss:.6f} (rel {loss_err:.2e}), matching "
+        f"{'the same' if torch.equal(r_rows, p_rows) else 'different'}, gradient rel L2 over "
+        f"{len(names)} parameters: max {max(held.values()):.3e}, median "
+        f"{np.median(list(held.values())):.3e}.  Free-running: loss {k_loss:.6f}, matching "
+        f"{'the same' if torch.equal(k_rows, p_rows) else 'different'}, gradient rel L2 "
+        f"all {global_rel_l2(k_grads, p_grads):.3e}, max {max(free.values()):.3e}, median "
+        f"{np.median(list(free.values())):.3e}.  The plain path with one ulp added to every "
+        f"MSDA output: loss {u_loss:.6f}, matching "
+        f"{'the same' if torch.equal(u_rows, p_rows) else 'different'}, gradient rel L2 all "
+        f"{global_rel_l2(u_grads, p_grads):.3e}, max {max(ulp.values()):.3e}, median "
+        f"{np.median(list(ulp.values())):.3e}")
+    # the sites the kernels feed: each MSDA module's output projection (12)
+    # and each flash attention's (6)
+    groups = {"msda-fed": [e for n, e in drift.items() if n.endswith(".output_proj.qdq_in")],
+              "flash-fed": [e for n, e in drift.items() if n.endswith(".out_proj.qdq_in")]}
+    groups["other"] = [e for n, e in drift.items()
+                       if not n.endswith((".output_proj.qdq_in", ".out_proj.qdq_in"))]
+    fed = (len(groups["msda-fed"]), len(groups["flash-fed"]))
+    log("  site inputs by group: " + ", ".join(
+        f"{g} {len(v)} sites max {max(v, default=0.0):.3e}" for g, v in groups.items()))
+    for n in worst_sites:
+        log(f"  site {n}: input rel err {drift[n]:.3e}")
+    for n in worst:
+        log(f"  {n}: kernel vs plain, roundings held {held[n]:.3e}, free-running {free[n]:.3e}; "
+            f"plain one ulp off {ulp[n]:.3e}")
+    bad_sites = [n for n in drift if not drift[n] <= QAT_SITE_REL]
+    if bad_sites or fed != (12, 6):
+        raise AssertionError(f"qat: {fed} kernel-fed sites compared; inputs of {bad_sites[:5]} "
+                             f"above {QAT_SITE_REL}")
+    if not torch.equal(r_rows, p_rows):
+        raise AssertionError("qat: with the roundings held the matching differs")
+    if not loss_err <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"qat: loss {r_loss} against plain {p_loss}")
+    bad = [n for n in names if not held[n] <= TRAIN_GRAD_REL_L2]
+    if bad or not all(torch.isfinite(g).all() for g in k_grads.values()):
+        raise AssertionError(f"qat: gradients of {bad[:5]} above {TRAIN_GRAD_REL_L2}")
+    res = dict(sites=len(scales), calibrate_s=calib_s, fp_loss=fp_loss, loss=k_loss,
+               plain_loss=p_loss, held_loss=r_loss, held_loss_rel_err=loss_err,
+               sites_compared=len(drift), site_input_rel_err_max=max(drift.values()),
+               site_input_rel_err_median=float(np.median(list(drift.values()))),
+               worst_sites={n: drift[n] for n in worst_sites},
+               site_input_rel_err_by_group={g: max(v, default=0.0) for g, v in groups.items()},
+               parameters=len(names), held_grad_rel_l2_max=max(held.values()),
+               held_grad_rel_l2_median=float(np.median(list(held.values()))),
+               free_same_matching=bool(torch.equal(k_rows, p_rows)),
+               free_grad_rel_l2=global_rel_l2(k_grads, p_grads),
+               free_grad_rel_l2_max=max(free.values()),
+               free_grad_rel_l2_median=float(np.median(list(free.values()))),
+               ulp_loss=u_loss, ulp_same_matching=bool(torch.equal(u_rows, p_rows)),
+               ulp_grad_rel_l2=global_rel_l2(u_grads, p_grads),
+               ulp_grad_rel_l2_max=max(ulp.values()),
+               ulp_grad_rel_l2_median=float(np.median(list(ulp.values()))),
+               worst={n: (held[n], free[n], ulp[n]) for n in worst})
+    del k_grads, p_grads, r_grads, u_grads
+    opt = Optimizer(model, learning_rate=1e-6, total_steps=QAT_STEPS, warmup_steps=0)
+    reset_launch_counts()
+    run = timed_steps(model, opt, batch, QAT_STEPS)
+    counts = launch_counts()
+    log(f"qat tiny steps on {card}: {QAT_STEPS} steps, step {run['step_ms']:.1f} ms (median): "
+        f"forward {run['forward_ms']:.1f}, backward {run['backward_ms']:.1f}, optimizer "
+        f"{run['optimizer_ms']:.1f}; peak {run['peak_memory_mb']:.0f} MB; launches "
+        f"{dict(zip(COUNT_NAMES, counts))}")
+    if counts != counts_of(msda=12 * QAT_STEPS, flash_attn=6 * QAT_STEPS):
+        raise AssertionError(f"qat steps: launches {counts}")
+    if not all(np.isfinite(run["losses"])):
+        raise AssertionError(f"qat steps: losses {run['losses']}")
+    res["steps"] = run
+    del model, opt
+    torch.cuda.empty_cache()
+
+    qat_pth = str(work / "tiny_qat.pth")
+    reset_launch_counts()
+    out = train_cli.main(["tiny", "--infos", infos, "--data-root", str(root), "--quant-scales",
+                          scales_path, "--checkpoint", str(pth), "--steps", str(QAT_STEPS),
+                          "--log-every", "1", "--out", qat_pth])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != counts_of(msda=12 * QAT_STEPS, flash_attn=6 * QAT_STEPS):
+        raise AssertionError(f"qat CLI: launches {counts}")
+    if not all(np.isfinite(m["loss"]) for m in out.metrics):
+        raise AssertionError(f"qat CLI: {out.metrics}")
+    trained = {k: v.detach().cpu() for k, v in out.model.state_dict().items()}
+    cli_losses = [m["loss"] for m in out.metrics]
+    del out
+    reset_launch_counts()
+    ev = evaluate.main(["tiny", "--infos", infos, "--data-root", str(root), "--checkpoint",
+                        qat_pth, "--quant-scales", scales_path, "--quant", "int8"])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = tuple(EVAL_FRAMES * n for n in counts_of(msda=3, int8_gemm=202, msda_int8=9,
+                                                    flash_int8=6))
+    if counts != want:
+        raise AssertionError(f"qat int8 evaluation: expected {want} launches, got {counts}")
+    folded, moved = 0, 0
+    for name, m in ev.engine.model.named_modules():
+        if isinstance(m, (QConv, QDense)) and m.wq is not None:
+            wq, wscale = quantize_weight(trained[f"{name}.weight"])
+            old_wq, old_wscale = quantize_weight(sd[f"{name}.weight"])
+            if not (torch.equal(m.wq.cpu(), wq) and torch.equal(m.wscale.cpu(), wscale)):
+                raise AssertionError(f"qat int8 evaluation: {name}'s fold is not the QAT weight's")
+            folded += 1
+            moved += not (torch.equal(wq, old_wq) and torch.equal(wscale, old_wscale))
+    layers = int8_layers(ev.engine.model)
+    if not (folded == layers and moved > 0) or not all(np.isfinite(v) for v in ev.metrics.values()):
+        raise AssertionError(f"qat int8 evaluation: {folded} folds, {moved} moved by QAT, "
+                             f"metrics {ev.metrics}")
+    log(f"qat CLI tiny: {QAT_STEPS} steps, losses {[round(x, 4) for x in cli_losses]}; "
+        f"tools/evaluate.py --quant int8 of its .pth: {folded} int8 layers folded from the QAT "
+        f"weights ({moved} differ from the calibration-time fold); NDS {ev.metrics['NDS']:.4f}")
+    res.update(cli_losses=cli_losses, cli_folded=folded, cli_folds_moved=moved,
+               int8_metrics=ev.metrics)
+    del ev
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---- phase 15: BEVDet-R50 -------------------------------------------------------
+
+# The card's float32 heads against the CPU's on one frame, max |a - b| / max |b|
+# per head map: cuDNN and the CPU sum the ~90 convolutions in other orders
+# (on the H100 8.80e-5 at most, the height head, in the first of six runs;
+# 3.34e-5 in the five since).
+BEVDET_F32_CPU_TOL = 5e-4
+# The `interval` splat against a float64 `scatter` of the same contributions,
+# max |a - b| / max |b|: a float32 prefix over up to 400000 points (on the
+# H100 7.63e-6 in every run of the prefix along the contiguous axis, 4.35e-5
+# along the outer one; `scatter` at most 6.28e-7).
+BEVDET_POOL_TOL = 1e-4
+
+
+def int8_layers(model):
+    """The model's dense and conv layers that run on the int8 product."""
+    return sum(isinstance(m, (QConv, QDense)) and m.mode == "int8" for m in model.modules())
+
+
+def bevdet_pool_check(engine, image):
+    """The model's depth and context on one frame through both splats on
+    the card, against a float64 scatter of the same inputs."""
+    m = engine.model
+    cfg = engine.cfg
+    with torch.inference_mode():
+        img = torch.as_tensor(image, device=engine.device).reshape(
+            -1, 3, cfg.input_h, cfg.input_w)
+        out = m.img_view_transformer.depth_net(m.img_neck(m.img_backbone(img)))
+        depth = torch.softmax(out[:, :cfg.depth_bins].float(), dim=1)
+        feat = out[:, cfg.depth_bins:].permute(0, 2, 3, 1)
+        rd, rf, rb, starts, lens = engine.rank_args
+        kw = dict(out_height=cfg.bev_h, out_width=cfg.bev_w)
+        ref = bev_pool_v2(depth.double(), feat.double(), rd, rf, rb, **kw)
+        interval = bev_pool_v2(depth, feat, rd, rf, rb, starts, lens, impl="interval", **kw)
+        scatter = bev_pool_v2(depth, feat, rd, rf, rb, **kw)
+        torch.cuda.synchronize()
+        errs = {name: float((x.double() - ref).abs().max() / ref.abs().max())
+                for name, x in (("interval", interval), ("scatter", scatter))}
+        ms = {name: device_ms(fn, 5, 3) for name, fn in (
+            ("interval", lambda: bev_pool_v2(depth, feat, rd, rf, rb, starts, lens,
+                                             impl="interval", **kw)),
+            ("scatter", lambda: bev_pool_v2(depth, feat, rd, rf, rb, **kw)))}
+    return errs, ms
+
+
+def bevdet_eval(card, root, ckpt, dtype, scales=None):
+    """`tools/bevdet/evaluate.py` through its `main` on the card: launch
+    counts, finite metrics, the pipelined loop's detections a serial loop's,
+    then the loop timed over the set repeated EVAL_REPEATS times and the
+    engine's frame latency."""
+    infos = str(root / "nuscenes_infos_synthetic.pkl")
+    argv = ["--infos", infos, "--data-root", str(root), "--checkpoint", str(ckpt),
+            "--dtype", dtype] + (["--quant-scales", scales, "--quant", "int8"] if scales else [])
+    name = f"bevdet r50 {dtype}" + (" int8" if scales else "")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    res = bevdet_evaluate.main(argv)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    engine, frames, indices = res.engine, res.frames, res.indices
+    layers = int8_layers(engine.model)
+    want = tuple(EVAL_FRAMES * n for n in counts_of(int8_gemm=layers))
+    log(f"{name} main path: launches over {EVAL_FRAMES} frames {dict(zip(COUNT_NAMES, counts))} "
+        f"({layers} int8 layers); peak device memory {peak_mb:.0f} MB")
+    if counts != want or (scales and layers == 0):
+        raise AssertionError(f"{name}: expected {want} launches, got {counts}")
+    if len(indices) != EVAL_FRAMES or not all(np.isfinite(v) for v in res.metrics.values()):
+        raise AssertionError(f"{name}: {len(indices)} frames, metrics {res.metrics}")
+    serial = bevdet_evaluate.eval_loop(engine, frames, indices, pipelined=False)
+    same_detections(res.run.detections, serial.detections, f"{name} pipelined vs serial")
+    first = serial.detections
+    timed = bevdet_evaluate.eval_loop(engine, frames, list(indices) * EVAL_REPEATS)
+    same_detections(timed.detections, first * EVAL_REPEATS, f"{name} pipelined, repeated")
+    images = [frames.frame(i).image for i in indices]
+    lat = []
+    for i, image in enumerate(images * 3):
+        t0 = time.perf_counter()
+        engine.infer_frame(image)
+        torch.cuda.synchronize()
+        if i:
+            lat.append((time.perf_counter() - t0) * 1e3)
+    out = dict(launches=dict(zip(COUNT_NAMES, counts)), int8_layers=layers,
+               peak_memory_mb=peak_mb, metrics=res.metrics, timed_frames=len(timed.latencies),
+               pipelined_ms=middle_mean_ms(timed.latencies),
+               pipelined_median_ms=float(np.median(timed.latencies) * 1e3),
+               latency_ms_median=float(np.median(lat)), latency_ms=lat,
+               nms_ms_median=float(np.median(timed.nms_ms)),
+               kept_boxes=[len(d["boxes_3d"]) for d in first],
+               valid_points=engine.valid_points, intervals=engine.intervals)
+    log(f"{name} on {card}: frame latency median {out['latency_ms_median']:.2f} ms over "
+        f"{len(lat)} frames (after a warm-up); eval loop {out['pipelined_ms']:.2f} ms a frame "
+        f"over {out['timed_frames']} (median {out['pipelined_median_ms']:.2f}); Scale-NMS "
+        f"{out['nms_ms_median']:.2f} host ms a frame (median; kept {out['kept_boxes']}); "
+        f"ranks: {out['valid_points']} valid points, {out['intervals']} intervals")
+    return out, res
+
+
+def phase_bevdet(card, dev, gen, root, work):
+    """BEVDet-R50 at full width (6 x 256x704 crops of the 1600x900 views,
+    128x128 BEV) from a seeded upstream-layout `.pth` on the generated set:
+    `tools/bevdet/evaluate.py` in float32 (no kernel of the TPU table runs:
+    cuDNN's convolutions and the stock-op splat) and bfloat16; one frame's
+    float32 heads against the CPU's; the two splats against a float64
+    splat; then `tools/bevdet/calibrate.py` (`max`, the 4 frames) and
+    `--quant int8`: every convolution on the int8 product, its launches
+    counted, one frame against the plain product's, and the product timed
+    at every shape the frame launched."""
+    cfg = bevdet_r50()
+    model = init_weights(BEVDet(cfg), torch.Generator().manual_seed(0))
+    ckpt = work / "bevdet_r50_upstream.pth"
+    torch.save(bevdet_upstream_layout(cfg, model.state_dict()), ckpt)
+    del model
+    res = {}
+    f32, ev = bevdet_eval(card, root, ckpt, "float32")
+    image = ev.frames.frame(0).image
+    with torch.inference_mode():
+        card_heads = {k: v.cpu() for k, v in ev.engine.heads(image).items()}
+    cpu = BEVDetEngine(cfg, ev.engine.ranks, state_dict=checkpoint_state_dict(cfg, str(ckpt)),
+                       device="cpu")
+    with torch.inference_mode():
+        cpu_heads = cpu.heads(image)
+    cpu_err = {k: rel_errors(card_heads[k], cpu_heads[k]) for k in cpu_heads}
+    log(f"bevdet r50 float32 card vs CPU, one frame: "
+        + ", ".join(f"{k} max {e['max']:.2e} rms {e['rms']:.2e}" for k, e in cpu_err.items()))
+    bad = [k for k, e in cpu_err.items() if not e["max"] <= BEVDET_F32_CPU_TOL]
+    if bad:
+        raise AssertionError(f"bevdet r50: heads {bad} of the card and the CPU differ")
+    pool_err, pool_ms = bevdet_pool_check(ev.engine, image)
+    log(f"bevdet r50 splat on {card} against a float64 scatter: interval {pool_err['interval']:.2e} "
+        f"({pool_ms['interval']:.3f} ms), scatter {pool_err['scatter']:.2e} "
+        f"({pool_ms['scatter']:.3f} ms)")
+    if not max(pool_err.values()) <= BEVDET_POOL_TOL:
+        raise AssertionError(f"bevdet r50 splat: {pool_err}")
+    res["float32"] = dict(f32, cpu_rel_err=cpu_err, pool_rel_err=pool_err, pool_ms=pool_ms)
+    del ev, cpu
+    torch.cuda.empty_cache()
+    res["bfloat16"], ev = bevdet_eval(card, root, ckpt, "bfloat16")
+    del ev
+    torch.cuda.empty_cache()
+
+    infos = str(root / "nuscenes_infos_synthetic.pkl")
+    scales = str(work / "bevdet_scales.npz")
+    t0 = time.perf_counter()
+    bevdet_calibrate.main(["--infos", infos, "--data-root", str(root), "--checkpoint", str(ckpt),
+                           "--method", "max", "--length", str(EVAL_FRAMES), "--out", scales])
+    calib_s = time.perf_counter() - t0
+    int8, ev = bevdet_eval(card, root, ckpt, "float32", scales)
+    engine = ev.engine
+    with torch.inference_mode():
+        got = engine.heads(image)
+        with plain_versions(("int8_gemm",)):
+            want = engine.heads(image)
+        torch.cuda.synchronize()
+    int8_err = {k: rel_errors(got[k], want[k]) for k in got}
+    log(f"bevdet r50 int8 kernel vs plain product, one frame: "
+        + ", ".join(f"{k} max {e['max']:.2e}" for k, e in int8_err.items()))
+    if not all(torch.equal(got[k], want[k]) for k in got):
+        raise AssertionError(f"bevdet r50 int8: the kernel path differs from the plain product's "
+                             f"{int8_err}")
+    shapes, calls, _ = gemm_shapes_of(engine.model, lambda: engine.heads(image))
+    named = {f"{M}x{K}x{N}": (M, K, N) for (M, K, N) in sorted(shapes)}
+    counts = {f"{M}x{K}x{N}": c for (M, K, N), c in shapes.items()}
+    int8.update(calibrate_s=calib_s, kernel_vs_plain_rel_err=int8_err,
+                gemm_shapes=phase_int8_gemm(dev, gen, named, counts, reps=(5, 3)))
+    res["int8"] = int8
+    del ev, engine, got, want
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1865,6 +2367,16 @@ def main(argv=None):
     res = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s)
     seconds = {}
     base_scales = {}  # calibrated by base_int8, used again by the phase after it
+    # the loader-driven phases share one generated set and a working directory
+    work_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    work = Path(work_dir.name)
+    root = work / "set"
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, str(REPO / "tools" / "make_synthetic_nuscenes.py"),
+                    str(root), "--frames", str(EVAL_FRAMES)],
+                   check=True, capture_output=True, timeout=300)
+    res["set_s"] = time.perf_counter() - t0
+    log(f"generated set: {EVAL_FRAMES} frames of 6 x 1600x900 JPEGs in {res['set_s']:.1f} s")
     for phase, fn in (
             ("msda", lambda: phase_msda(dev, gen)),
             ("flash", lambda: phase_flash(dev, gen)),
@@ -1894,13 +2406,16 @@ def main(argv=None):
                 want=(6, 0, 26, 12, 6, 0), scales=base_scales)),
             ("small_int8", lambda: phase_int8_frame(
                 bevformer_small, card, exclude=None, want=(3, 0, 0, 9, 6, 26))),
-            ("eval", lambda: phase_eval(card)),
-            ("train", lambda: phase_train(card, dev, gen))):
+            ("eval", lambda: phase_eval(card, root, work)),
+            ("train", lambda: phase_train(card, dev, gen, root, work)),
+            ("qat", lambda: phase_qat(card, dev, root, work)),
+            ("bevdet", lambda: phase_bevdet(card, dev, gen, root, work))):
         t0 = time.perf_counter()
         res[phase] = fn()
         seconds[phase] = time.perf_counter() - t0
         log(f"phase {phase} took {seconds[phase]:.1f} s")
     res["phase_seconds"] = seconds
+    work_dir.cleanup()
 
     tiny, base = res["tiny"]["launches"], res["base"]["launches"]
     kernels = [
@@ -1934,7 +2449,7 @@ def main(argv=None):
                           "call computes the op, so library_ms is null); launches over the "
                           "three bfloat16 frames"),
     ]
-    tiny8, base8 = res["tiny_int8"], res["base_int8"]
+    tiny8, base8, bevdet8 = res["tiny_int8"], res["base_int8"], res["bevdet"]["int8"]
     gemm = {"name": "int8_gemm", "route": "cuda",
             "source": "bevformer_tensorrt_tpu_torch/csrc/int8_gemm.cu",
             "replaces": "bevformer_tensorrt_tpu/ops/pallas/int8_matmul.py:41",
@@ -1945,7 +2460,10 @@ def main(argv=None):
                    "takes, ms_where_library_runs the kernel over the same launches",
             "base_launches": base8["launches"]["int8_gemm"],
             **{f"base_{k}": v for k, v in gemm_frame_sums(base8["gemm_shapes"]).items()},
-            "shapes": res["int8_gemm"] + tiny8["gemm_shapes"] + base8["gemm_shapes"]}
+            "bevdet_launches": bevdet8["launches"]["int8_gemm"],
+            **{f"bevdet_{k}": v for k, v in gemm_frame_sums(bevdet8["gemm_shapes"]).items()},
+            "shapes": res["int8_gemm"] + tiny8["gemm_shapes"] + base8["gemm_shapes"]
+            + bevdet8["gemm_shapes"]}
     quantize_note = ("; ms is the wrapper, which quantizes its floating-point inputs with plain "
                      "passes before the launch, kernel_ms the kernel alone, float_kernel_ms the "
                      "floating-point kernel at the same shape")
@@ -2025,7 +2543,8 @@ def main(argv=None):
             "shapes": rows})
     for k in kernels:
         if k.get("main_path", True) and (k["launches"] < 1 or k.get("base_launches", 1) < 1
-                                         or k.get("small_launches", 1) < 1):
+                                         or k.get("small_launches", 1) < 1
+                                         or k.get("bevdet_launches", 1) < 1):
             raise AssertionError(f"kernel {k['name']} was not launched on the main path")
     res["kernels"] = kernels
     if args.out:

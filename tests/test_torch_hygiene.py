@@ -72,13 +72,17 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 55
+    assert int(res.stdout.split()[-1]) >= 67
     for module in ("quant.qdq", "quant.calibrate", "quant.fold", "ops.int8_matmul",
                    "tools.calibrate", "ops.gather_probe", "runtime.torch_import",
                    "tools.kernel_bench", "tools.kernel_cases", "data.nuscenes",
                    "data.transforms", "data.sampler", "native", "evalsuite.nds",
                    "evalsuite.format", "tools.evaluate", "ops.plain_vjp", "train.losses",
-                   "train.assigner", "train.step", "tools.train"):
+                   "train.assigner", "train.step", "tools.train", "configs.bevdet", "core.nms",
+                   "models.necks.view_transformer", "ops.bev_pool",
+                   "models.backbones.bev_resnet", "models.heads.centerpoint_head",
+                   "models.detectors.bevdet", "runtime.bevdet_engine", "tools.bevdet.evaluate",
+                   "tools.bevdet.calibrate", "tools.accuracy_cycle"):
         assert os.path.exists(os.path.join(REPO, "bevformer_tensorrt_tpu_torch",
                                            *module.split(".")) + ".py"), module
 
@@ -378,3 +382,52 @@ def test_library_name_hashes_the_sources_it_includes(tmp_path, monkeypatch):
     real = Path(_cuda.__file__).resolve().parent.parent / "csrc"
     assert '#include "dcn_fused.cu"' in (real / "dcn_fused_split.cu").read_text()
     assert "dcn_fused_split" not in _cuda.KERNELS  # built on demand by the bench alone
+
+
+@pytest.mark.parametrize("tool", ["bevdet.evaluate", "bevdet.calibrate", "accuracy_cycle"])
+def test_new_clis_default_to_cuda(tool, tmp_path, monkeypatch):
+    """The BEVDet CLIs and the accuracy cycle run on CUDA unless `--device
+    cpu` is given: without a card they raise before any work."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    main = importlib.import_module(f"bevformer_tensorrt_tpu_torch.tools.{tool}").main
+    argv = [] if tool == "accuracy_cycle" else ["--infos", str(tmp_path / "none.pkl")]
+    argv += ["--out", str(tmp_path / "x.npz")] if tool == "bevdet.calibrate" else []
+    argv += ["--workdir", str(tmp_path / "w")] if tool == "accuracy_cycle" else []
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(argv)
+    assert not (tmp_path / "w").exists()
+
+
+def test_bevdet_engine_refuses_cpu_fallback(monkeypatch):
+    from bevformer_tensorrt_tpu_torch.configs.bevdet import bevdet_micro
+    from bevformer_tensorrt_tpu_torch.models.necks.view_transformer import PoolingRanks
+    from bevformer_tensorrt_tpu_torch.runtime.bevdet_engine import BEVDetEngine
+
+    ranks = PoolingRanks(*(np.zeros(4, np.int32) for _ in range(5)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BEVDetEngine(bevdet_micro(), ranks)
+    assert BEVDetEngine(bevdet_micro(), ranks, device="cpu").device.type == "cpu"
+    with pytest.raises(ValueError, match="pool_impl"):
+        BEVDetEngine(bevdet_micro(), ranks, device="cpu", pool_impl="sorted")
+
+
+def test_native_nms_has_no_fallback(tmp_path, monkeypatch):
+    """A native NMS that cannot be built raises: no numpy NMS stands behind
+    it (the JAX wrapper falls back to core/nms.py)."""
+    from bevformer_tensorrt_tpu_torch import native
+
+    monkeypatch.setattr(native, "BUILD", tmp_path / "build")
+    monkeypatch.setattr(native, "CXX", str(tmp_path / "no-such-compiler"))
+    monkeypatch.setattr(native, "_libs", {})
+    boxes = np.array([[0, 0, 2, 4, 0.0], [0.1, 0, 2, 4, 0.0]], np.float32)
+    with pytest.raises(RuntimeError, match="no-such-compiler"):
+        native.nms_rotated_native(boxes, np.array([0.9, 0.8]), 0.2)
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "nms_rotated.cpp").write_text("this is not C++\n")
+    monkeypatch.setattr(native, "CSRC", tmp_path / "csrc")
+    monkeypatch.setattr(native, "CXX", "g++")
+    with pytest.raises(RuntimeError, match="failed for nms_rotated.cpp"):
+        native.rotated_iou_matrix_native(boxes, boxes)
