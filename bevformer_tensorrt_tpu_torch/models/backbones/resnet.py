@@ -4,11 +4,11 @@
 Frozen BatchNorm as an affine.  Style "pytorch" puts a block's stride on the
 3x3 conv (R50 at tiny), "caffe" on the first 1x1 (R101 at small and base).
 In a DCN stage the 3x3 conv is `DeformConv2d`: a plain conv predicts offsets
-and mask, `ops.dcn.modulated_deform_conv2d` samples.  The R18/R34 basic
-blocks of the JAX module belong to CenterNet and are not ported yet.
+and mask, `ops.dcn.modulated_deform_conv2d` samples.
 
 Under `quant` every conv is a quantization site and the identity branch of
-a block passes the QDQ site `qdq_residual` ahead of the residual add.  The
+a block passes the QDQ site `qdq_residual` ahead of the residual add.  R18
+and R34 (CenterNet's backbone) are built of two-conv basic blocks.  The
 DCN op itself ignores `quant` unless it is "int8": then it samples from the
 int8 gather table of the im2col, unless the policy excludes the pseudo-site
 `<conv2>/dcn_tables`, which keeps the table in floating point.
@@ -26,7 +26,8 @@ from ...quant.policy import effective_quant
 from ...quant.qdq import QDQ
 from ..layers import FrozenBN, QConv
 
-STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
+STAGE_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
+BASIC_DEPTHS = (18, 34)
 
 
 class DeformConv2d(nn.Module):
@@ -131,14 +132,40 @@ class Bottleneck(nn.Module):
         return F.relu(out + identity)
 
 
+class ResNetBasicBlock(nn.Module):
+    """Two-conv residual block of R18 / R34; a stage's first block (after
+    the first stage) downsamples its identity with a strided 1x1 conv."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False,
+                 quant=False):
+        super().__init__()
+        self.conv1 = QConv(inplanes, planes, 3, stride, 1, bias=False, quant=quant)
+        self.bn1 = FrozenBN(planes)
+        self.conv2 = QConv(planes, planes, 3, 1, 1, bias=False, quant=quant)
+        self.bn2 = FrozenBN(planes)
+        self.has_downsample = downsample
+        if downsample:
+            self.downsample_conv = QConv(inplanes, planes, 1, stride, 0, bias=False, quant=quant)
+            self.downsample_bn = FrozenBN(planes)
+        self.qdq_residual = QDQ() if quant else None
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        identity = self.downsample_bn(self.downsample_conv(x)) if self.has_downsample else x
+        if self.qdq_residual is not None:
+            identity = self.qdq_residual(identity)[0]
+        return F.relu(out + identity)
+
+
 class ResNet(nn.Module):
     def __init__(self, depth: int = 101, out_indices: Sequence[int] = (1, 2, 3),
                  dcn_stages: Sequence[bool] = (False,) * 4, style: str = "pytorch",
                  quant=False):
         super().__init__()
         if depth not in STAGE_BLOCKS:
-            raise NotImplementedError(
-                f"ResNet depth {depth}: only the bottleneck depths {sorted(STAGE_BLOCKS)} are ported")
+            raise NotImplementedError(f"ResNet depth {depth}: expected one of {sorted(STAGE_BLOCKS)}")
+        basic = depth in BASIC_DEPTHS
         self.out_indices = tuple(out_indices)
         self.stem_conv = QConv(3, 64, 7, 2, 3, bias=False, quant=quant)
         self.stem_bn = FrozenBN(64)
@@ -148,11 +175,15 @@ class ResNet(nn.Module):
             names = []
             for b in range(n):
                 name = f"stage{stage}_block{b}"
-                setattr(self, name, Bottleneck(
-                    inplanes, planes, stride=(1 if stage == 0 or b > 0 else 2),
-                    downsample=(b == 0), style=style, dcn=bool(dcn_stages[stage]),
-                    quant=quant))
-                inplanes = planes * 4
+                stride = 1 if stage == 0 or b > 0 else 2
+                if basic:
+                    block = ResNetBasicBlock(inplanes, planes, stride,
+                                             downsample=(b == 0 and stage > 0), quant=quant)
+                else:
+                    block = Bottleneck(inplanes, planes, stride=stride, downsample=(b == 0),
+                                       style=style, dcn=bool(dcn_stages[stage]), quant=quant)
+                setattr(self, name, block)
+                inplanes = planes * (1 if basic else 4)
                 names.append(name)
             self.blocks.append(names)
             planes *= 2

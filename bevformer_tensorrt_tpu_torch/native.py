@@ -1,12 +1,14 @@
 """Host-side native code of the port (port of
-`bevformer_tensorrt_tpu/native.py`, its image and rotated-NMS parts):
+`bevformer_tensorrt_tpu/native.py`: the image pass, the rotated NMS and the
+axis-aligned 2D NMS):
 `csrc/image_pipeline.cpp` and `csrc/nms_rotated.cpp`, each built with g++ at
 first use and bound with ctypes.
 
 A library is built into `csrc/build/host/` under a name that carries a hash
 of its source and flags, so an edited source is rebuilt.  A failed build
 raises: there is no numpy fallback (the JAX wrapper falls back to
-`core/nms.py`; the port keeps that module as the tests' oracle only).
+`core/nms.py` and `core/nms2d.py`; the port keeps their numpy loops as the
+tests' oracles only).
 Nothing is built at import time.
 """
 from __future__ import annotations
@@ -105,6 +107,10 @@ def _nms_lib() -> ctypes.CDLL:
         lib.rotated_iou_matrix.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
             ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.POINTER(ctypes.c_float)]
+        lib.nms_2d.restype = ctypes.c_int64
+        lib.nms_2d.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_float,
+            ctypes.POINTER(ctypes.c_int64)]
         _libs["nms_rotated"] = lib
     return lib
 
@@ -139,3 +145,19 @@ def rotated_iou_matrix_native(a: np.ndarray, b: np.ndarray) -> np.ndarray:
         b.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(b),
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
     return out
+
+
+def nms_2d_native(boxes: np.ndarray, scores: np.ndarray, iou_threshold: float) -> np.ndarray:
+    """Greedy axis-aligned NMS over [n, 4] xyxy boxes in order of descending
+    score (`csrc/nms_rotated.cpp::nms_2d`); returns the kept indices (into
+    the input), highest score first."""
+    b = np.asarray(boxes, np.float32)
+    if b.ndim != 2 or b.shape[1] != 4:
+        raise ValueError(f"expected [n, 4] xyxy boxes, got {b.shape}")
+    order = np.argsort(-np.asarray(scores))
+    b = np.ascontiguousarray(b[order])
+    keep = np.empty(len(b), np.int64)
+    n = _nms_lib().nms_2d(
+        b.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(b), ctypes.c_float(iou_threshold),
+        keep.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    return order[keep[:n]]

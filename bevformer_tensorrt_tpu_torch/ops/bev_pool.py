@@ -21,6 +21,11 @@ carries it on stock torch ops, in the JAX package's two formulations:
 
 Pads carry rank -1.  They are masked to index 0 before every gather (a -1
 index would read the last element) and their contributions zeroed.
+
+The gathers are `index_select`s, whose backward is an `index_add_`: the
+backward of advanced indexing (`x[idx]`) is a sorted, duplicate-serialising
+`index_put_`, which took 245 of a 322 ms BEVDet-R50 training backward on an
+H100, each feature pixel being gathered once per depth bin.
 """
 from __future__ import annotations
 
@@ -56,7 +61,8 @@ def bev_pool_v2(depth, feat, ranks_depth, ranks_feat, ranks_bev, interval_starts
     rd = torch.where(valid, ranks_depth, zero).long()
     rf = torch.where(valid, ranks_feat, zero).long()
     nil = torch.zeros((), dtype=cdtype, device=feat.device)
-    contrib = torch.where(valid[:, None], d_flat[rd][:, None] * f_flat[rf], nil)
+    contrib = torch.where(valid[:, None],
+                          d_flat.index_select(0, rd)[:, None] * f_flat.index_select(0, rf), nil)
     cells = out_height * out_width
     out = torch.zeros((cells + 1, C), dtype=cdtype, device=feat.device)
 
@@ -69,8 +75,8 @@ def bev_pool_v2(depth, feat, ranks_depth, ranks_feat, ranks_bev, interval_starts
         starts = interval_starts.long()
         lens = interval_lengths.long()
         live = lens > 0
-        hi = csum[:, (starts + lens - 1).clamp(0, P - 1)]
-        lo = torch.where(starts > 0, csum[:, (starts - 1).clamp(0, P - 1)], nil)
+        hi = csum.index_select(1, (starts + lens - 1).clamp(0, P - 1))
+        lo = torch.where(starts > 0, csum.index_select(1, (starts - 1).clamp(0, P - 1)), nil)
         seg = torch.where(live, hi - lo, nil).T  # [I, C]
         # live cells are unique; pad intervals share the dropped bucket
         cell = torch.where(live, ranks_bev[starts.clamp(0, P - 1)].long(),

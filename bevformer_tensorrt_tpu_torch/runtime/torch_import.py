@@ -1,5 +1,5 @@
-"""Load upstream (mmdet / mmcv) BEVFormer and BEVDet checkpoints into the
-port (port of the BEVFormer and BEVDet parts of
+"""Load upstream (mmdet / mmcv) BEVFormer, BEVDet, YOLOX and CenterNet
+checkpoints into the port (port of
 `bevformer_tensorrt_tpu/runtime/torch_import.py`).
 
 The upstream state_dict names its tensors `img_backbone.layer*.*`,
@@ -23,9 +23,13 @@ the model takes, raises `KeyError` with the key's name.  Only BatchNorm's
 `num_batches_tracked` counters and the head's `code_weights` (a loss weight)
 are passed over: upstream checkpoints carry them and inference has no use
 for them.  `load_bevdet_checkpoint` is the same for BEVDet's keys
-(`bevdet_key_map`).  `upstream_layout` and `bevdet_upstream_layout` invert
-the renaming, for seeded checkpoints in the upstream layout.  The importers
-of the other detector families wait for their families.
+(`bevdet_key_map`), and `load_yolox_checkpoint` / `load_centernet_checkpoint`
+for the 2D family (`yolox_key_map`, `centernet_key_map`).  `upstream_layout`,
+`bevdet_upstream_layout`, `yolox_upstream_layout` and
+`centernet_upstream_layout` invert the renaming, for seeded checkpoints in
+the upstream layout.  CenterNet's transposed convs keep torch's
+[in, out, 4, 4] weight: the port's layer is torch's own, so nothing is
+flipped (the JAX importer flips it for flax).
 """
 from __future__ import annotations
 
@@ -36,7 +40,11 @@ import torch
 
 from ..configs.bevdet import BEVDetConfig
 from ..configs.bevformer import BEVFormerConfig
+from ..configs.centernet import CenterNetConfig
+from ..configs.yolox import YOLOXConfig
+from ..models.backbones.csp_darknet import STAGES
 from ..models.backbones.resnet import STAGE_BLOCKS
+from ..models.heads.centernet_head import BRANCHES
 from ..models.heads.centerpoint_head import HEADS
 
 # (port key, upstream key, third): `third` is None, or 0 / 1 / 2 for the q / k /
@@ -184,6 +192,96 @@ def bevdet_key_map(cfg: BEVDetConfig) -> Iterator[Entry]:
         yield from _wb(f"{h}.{name}.conv2", f"{src}.1")
 
 
+def _conv_module(dst: str, src: str) -> Iterator[Entry]:
+    """mmcv ConvModule: conv (no bias) + BN."""
+    yield from _wb(f"{dst}.conv", f"{src}.conv", bias=False)
+    yield from _bn(f"{dst}.bn", f"{src}.bn")
+
+
+def _csp_layer(dst: str, src: str, blocks: int) -> Iterator[Entry]:
+    for name in ("main_conv", "short_conv"):
+        yield from _conv_module(f"{dst}.{name}", f"{src}.{name}")
+    for k in range(blocks):
+        for n in ("conv1", "conv2"):
+            yield from _conv_module(f"{dst}.block{k}.{n}", f"{src}.blocks.{k}.{n}")
+    yield from _conv_module(f"{dst}.final_conv", f"{src}.final_conv")
+
+
+def yolox_key_map(cfg: YOLOXConfig) -> Iterator[Entry]:
+    """Every tensor of `YOLOX(cfg)`'s floating-point state_dict with the
+    upstream key that holds it (mmdet naming):
+
+      backbone.stem.conv                       -> backbone.stem.conv (Focus)
+      backbone.stage{i}.0 / .1 (SPP) / .1|.2   -> stage{i}_down / _spp / _csp
+      neck.{reduce_layers,top_down_blocks,downsamples,bottom_up_blocks,out_convs}.{k}
+                                               -> neck.{reduce,td_csp,down,bu_csp,out}{k}
+      bbox_head.multi_level_{cls,reg}_convs.{l}.{i} -> bbox_head.l{l}_{cls,reg}{i}
+      bbox_head.multi_level_conv_{cls,reg,obj}.{l}  -> bbox_head.l{l}_{cls,reg,obj}_out
+    """
+    yield from _conv_module("backbone.stem.conv", "backbone.stem.conv")
+    for i, (_, n, spp) in enumerate(STAGES, start=1):
+        src = f"backbone.stage{i}"
+        yield from _conv_module(f"backbone.stage{i}_down", f"{src}.0")
+        if spp:
+            for name in ("conv1", "conv2"):
+                yield from _conv_module(f"backbone.stage{i}_spp.{name}", f"{src}.1.{name}")
+        yield from _csp_layer(f"backbone.stage{i}_csp", f"{src}.{2 if spp else 1}",
+                              max(round(n * cfg.deepen_factor), 1))
+    levels = 3
+    for k in range(levels - 1):
+        yield from _conv_module(f"neck.reduce{k}", f"neck.reduce_layers.{k}")
+        yield from _csp_layer(f"neck.td_csp{k}", f"neck.top_down_blocks.{k}", cfg.num_csp_blocks)
+    for k in range(levels - 1):
+        yield from _conv_module(f"neck.down{k}", f"neck.downsamples.{k}")
+        yield from _csp_layer(f"neck.bu_csp{k}", f"neck.bottom_up_blocks.{k}", cfg.num_csp_blocks)
+    for k in range(levels):
+        yield from _conv_module(f"neck.out{k}", f"neck.out_convs.{k}")
+    h = "bbox_head"
+    for lvl in range(levels):
+        for i in range(2):
+            yield from _conv_module(f"{h}.l{lvl}_cls{i}", f"{h}.multi_level_cls_convs.{lvl}.{i}")
+            yield from _conv_module(f"{h}.l{lvl}_reg{i}", f"{h}.multi_level_reg_convs.{lvl}.{i}")
+        for name in ("cls", "reg", "obj"):
+            yield from _wb(f"{h}.l{lvl}_{name}_out", f"{h}.multi_level_conv_{name}.{lvl}")
+
+
+def centernet_key_map(cfg: CenterNetConfig) -> Iterator[Entry]:
+    """Every tensor of `CenterNet(cfg)`'s floating-point state_dict with the
+    upstream key that holds it (mmdet naming):
+
+      backbone.{conv1,bn1,layer*}              -> backbone (mmcv ResNet, basic blocks)
+      neck.deconv_layers.{2m}.conv (+ .conv_offset with DCN), .bn
+                                               -> neck.dcn{m} (conv{m} without), dcn_bn{m}
+      neck.deconv_layers.{2m+1}.conv, .bn      -> neck.deconv{m}, deconv_bn{m}
+      bbox_head.{heatmap,wh,offset}_head.{0,2} -> bbox_head.{name}_conv / {name}_out
+    """
+    yield from _wb("backbone.stem_conv", "backbone.conv1", bias=False)
+    yield from _bn("backbone.stem_bn", "backbone.bn1")
+    for stage, blocks in enumerate(STAGE_BLOCKS[cfg.backbone_depth]):
+        for b in range(blocks):
+            d, s = f"backbone.stage{stage}_block{b}", f"backbone.layer{stage + 1}.{b}"
+            for n in (1, 2):
+                yield from _wb(f"{d}.conv{n}", f"{s}.conv{n}", bias=False)
+                yield from _bn(f"{d}.bn{n}", f"{s}.bn{n}")
+            if b == 0 and stage > 0:
+                yield from _wb(f"{d}.downsample_conv", f"{s}.downsample.0", bias=False)
+                yield from _bn(f"{d}.downsample_bn", f"{s}.downsample.1")
+    for m in range(len(cfg.deconv_filters)):
+        src = f"neck.deconv_layers.{2 * m}"
+        if cfg.use_dcn:
+            yield from _wb(f"neck.dcn{m}", f"{src}.conv", bias=False)
+            yield from _wb(f"neck.dcn{m}.conv_offset", f"{src}.conv.conv_offset")
+        else:
+            yield from _wb(f"neck.conv{m}", f"{src}.conv", bias=False)
+        yield from _bn(f"neck.dcn_bn{m}", f"{src}.bn")
+        up = f"neck.deconv_layers.{2 * m + 1}"
+        yield from _wb(f"neck.deconv{m}", f"{up}.conv", bias=False)
+        yield from _bn(f"neck.deconv_bn{m}", f"{up}.bn")
+    for name in BRANCHES:
+        yield from _wb(f"bbox_head.{name}_conv", f"bbox_head.{name}_head.0")
+        yield from _wb(f"bbox_head.{name}_out", f"bbox_head.{name}_head.2")
+
+
 def _config_of(model_or_cfg, kind, what: str):
     cfg = getattr(model_or_cfg, "cfg", model_or_cfg)
     if not isinstance(cfg, kind):
@@ -263,6 +361,32 @@ def bevdet_upstream_layout(cfg: BEVDetConfig, port_state_dict: Mapping) -> Dict[
     """`load_bevdet_checkpoint`'s inverse: a port-layout BEVDet state_dict's
     floating-point tensors under their upstream keys."""
     return _upstream(bevdet_key_map(cfg), port_state_dict)
+
+
+def load_yolox_checkpoint(model_or_cfg, state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """An upstream-layout YOLOX `state_dict` -> the port's state_dict for
+    `YOLOX(cfg)`, as `load_bevformer_checkpoint` is for BEVFormer (strict
+    both ways, float32, scales calibrated after loading)."""
+    cfg = _config_of(model_or_cfg, YOLOXConfig, "load_yolox_checkpoint")
+    return _load(yolox_key_map(cfg), state_dict, "load_yolox_checkpoint", cfg.name)
+
+
+def yolox_upstream_layout(cfg: YOLOXConfig, port_state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """`load_yolox_checkpoint`'s inverse."""
+    return _upstream(yolox_key_map(cfg), port_state_dict)
+
+
+def load_centernet_checkpoint(model_or_cfg, state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """An upstream-layout CenterNet `state_dict` -> the port's state_dict
+    for `CenterNet(cfg)` (strict both ways, float32)."""
+    cfg = _config_of(model_or_cfg, CenterNetConfig, "load_centernet_checkpoint")
+    return _load(centernet_key_map(cfg), state_dict, "load_centernet_checkpoint", cfg.name)
+
+
+def centernet_upstream_layout(cfg: CenterNetConfig,
+                              port_state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """`load_centernet_checkpoint`'s inverse."""
+    return _upstream(centernet_key_map(cfg), port_state_dict)
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:

@@ -1,1 +1,1 @@
-"""The BEVDet CLIs of the port: evaluate and calibrate."""
+"""The BEVDet CLIs of the port: train, evaluate and calibrate."""

@@ -87,7 +87,7 @@ def eval_loop(engine: BEVDetEngine, frames: NuScenesFrames, indices: Sequence[in
         run.pred_boxes.extend(detections_to_eval_boxes(f.sample_token, det))
         run.gt_boxes.extend(gt_to_eval_boxes(f.sample_token, f.gt_boxes, f.gt_labels))
 
-    run.latencies = pipelined_loop(frames, indices, dispatch, finish, pipelined)
+    run.latencies = pipelined_loop(frames.frame, indices, dispatch, finish, pipelined)
     return run
 
 

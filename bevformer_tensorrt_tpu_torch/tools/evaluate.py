@@ -13,7 +13,10 @@ and last frames' latencies dropped, the reference's convention).
 
 `--checkpoint` is an upstream-layout state_dict (`.pth`); without it the
 weights are seeded.  `--quant-scales` is a `CalibrationResult` `.npz` from
-`tools/calibrate.py`, with its `.policy.json` beside it.  Runs on CUDA
+`tools/calibrate.py`, with its `.policy.json` beside it.  Left out (the JAX
+CLI has them): `--distributed` and `--partial-dir` (multi-host evaluation,
+which waits for the port of `parallel/`), and `--knobs` (autotuned Mosaic
+knobs; the port's kernels pick their geometry by rule).  Runs on CUDA
 unless `--device cpu` is given.
 """
 from __future__ import annotations
@@ -68,26 +71,26 @@ class EvalRun:
         return metrics
 
 
-def pipelined_loop(frames: NuScenesFrames, indices: Sequence[int], dispatch: Callable,
-                   finish: Callable, pipelined: bool = True) -> List[float]:
-    """Drive `frames` through `dispatch(frame) -> pending` and
-    `finish(frame, pending)`, in order; returns the latencies (seconds, the
-    time between two finished frames).  A one-thread prefetcher loads frame
-    t+1 while frame t runs.  Pipelined, frame t is finished after frame t+1
-    is dispatched, so the host's work on frame t (its readback and decode)
-    overlaps the card's work on frame t+1; serial, each frame is finished
-    before the next is dispatched."""
+def pipelined_loop(load: Callable, indices: Sequence, dispatch: Callable, finish: Callable,
+                   pipelined: bool = True) -> List[float]:
+    """Drive the items `load(index)` of `indices` through
+    `dispatch(item) -> pending` and `finish(item, pending)`, in order;
+    returns the latencies (seconds, the time between two finished items).
+    A one-thread prefetcher loads item t+1 while item t runs.  Pipelined,
+    item t is finished after item t+1 is dispatched, so the host's work on
+    item t (its readback and decode) overlaps the card's work on item t+1;
+    serial, each item is finished before the next is dispatched."""
     n = len(indices)
     latencies: List[float] = []
     pending = None
     with ThreadPoolExecutor(max_workers=1) as prefetch:
         t_last = time.perf_counter()
-        fut = prefetch.submit(frames.frame, indices[0]) if n else None
+        fut = prefetch.submit(load, indices[0]) if n else None
         for step in range(n):
-            f = fut.result()
+            item = fut.result()
             if step + 1 < n:
-                fut = prefetch.submit(frames.frame, indices[step + 1])
-            current = (f, dispatch(f))
+                fut = prefetch.submit(load, indices[step + 1])
+            current = (item, dispatch(item))
             if not pipelined:
                 pending, current = current, None
             if pending is not None:
@@ -125,7 +128,7 @@ def eval_loop(engine: BEVFormerEngine, frames: NuScenesFrames, indices: Sequence
         run.gt_boxes.extend(gt_to_eval_boxes(f.sample_token, f.gt_boxes, f.gt_labels))
 
     engine.reset()
-    run.latencies = pipelined_loop(frames, indices, dispatch, finish, pipelined)
+    run.latencies = pipelined_loop(frames.frame, indices, dispatch, finish, pipelined)
     return run
 
 
@@ -141,7 +144,9 @@ class EvalResult:
 def main(argv=None) -> EvalResult:
     """Parse `argv`, evaluate, print the metrics line; the result is
     returned for callers that drive the tool from Python."""
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap = argparse.ArgumentParser(
+        description=__doc__.splitlines()[0],
+        epilog="Not ported from the JAX CLI: --distributed, --partial-dir, --knobs.")
     ap.add_argument("model", choices=MODELS)
     ap.add_argument("--infos", required=True)
     ap.add_argument("--data-root", default=None)

@@ -63,6 +63,13 @@ DCN_SHAPES = {
     "groups2": (2, 64, 23, 31, 48, 1, 2, 0, 0, 2),  # two conv groups of 32 -> 24 channels
 }
 DCN_MODEL_SHAPES = ("base_s3", "base_s4", "small_s3", "small_s4")  # the models' own
+# CenterNet-R18's neck at 640 px, a batch of 8 (the same columns; no BEVFormer
+# frame launches them): one DCNv2 ahead of each transposed conv
+DCN_CENTERNET_SHAPES = {
+    "ct_dcn0": (8, 512, 20, 20, 256, 1, 1, 0, 0, 1),
+    "ct_dcn1": (8, 256, 40, 40, 128, 1, 1, 0, 0, 1),
+    "ct_dcn2": (8, 128, 80, 80, 64, 1, 1, 0, 0, 1),
+}
 DCN_INT8_SHAPES = {
     # the int8 table is taken only with one deform group, one group and
     # Cin % 32 == 0; same columns as DCN_SHAPES

@@ -1,4 +1,4 @@
-"""Where a BEVFormer or BEVDet frame's time goes on the card.
+"""Where a BEVFormer, BEVDet, YOLOX or CenterNet frame's time goes on the card.
 
     python -m bevformer_tensorrt_tpu_torch.tools.profile_frame [--model tiny]
         [--dtype float32] [--frames 5] [--quant none] [--exclude PATTERN ...]
@@ -10,7 +10,10 @@ Runs BEVFormer tiny, small or base with seeded weights on synthetic frames of on
 points, the decode on the card; the host's Scale-NMS is not in the frame):
 first the host-clock frame latency (each frame ends in a
 synchronise), then a `torch.profiler` window over the same number of
-frames.  Prints the device time per frame by kernel family and the top
+frames.  With `--model yolox_x` or `--model centernet_r18` a "frame" is a batch
+of 8 seeded 640x640 images through `Det2DEngine`, the decode on the
+card (YOLOX's NMS and CenterNet's threshold run on the host and are not in
+it; YOLOX's seeded stem conv is scaled by 1/64, for raw-pixel inputs).  Prints the device time per frame by kernel family and the top
 kernels, the device busy share (the union of the kernels' intervals over
 the profiled window's wall time) and the peak device memory the timed
 frames allocated.  TF32 is off, as in chip_smoke.py.
@@ -36,6 +39,7 @@ from ..configs.bevdet import bevdet_r50
 from .. import ops
 from ..models.necks.view_transformer import get_lidar_coor, voxel_pooling_prepare
 from ..runtime.bevdet_engine import BEVDetEngine
+from ..runtime.det2d_engine import Det2DEngine, make_config
 from ..runtime.engine import BEVFormerEngine
 from ..runtime.synthetic import bevdet_rig, synthetic_frames
 from .path_diff import QUANT, quant_overrides
@@ -99,9 +103,31 @@ def bevdet_frames(over, count):
     return lambda i: engine.infer_frame(images[i])
 
 
+DET2D_BATCH = 8  # images a YOLOX or CenterNet frame
+
+
+def det2d_frames(model, over, count):
+    """`infer(i)`: batch i of `count` seeded batches through a YOLOX-x or
+    CenterNet-R18 engine (calibrated, `max` over two batches, under a
+    quantized tier)."""
+    cfg = make_config(model, **over)
+    engine = Det2DEngine(cfg, seed=0)
+    if model.startswith("yolox"):
+        with torch.no_grad():
+            engine.model.backbone.stem.conv.conv.weight.mul_(1 / 64)
+    rng = np.random.default_rng(0)
+    scale = 255.0 if model.startswith("yolox") else 1.0
+    images = [(rng.random((DET2D_BATCH, 3, cfg.img_size, cfg.img_size)) * scale).astype(np.float32)
+              for _ in range(count)]
+    if cfg.quant:
+        engine.calibrate(images[:2], method="max")
+    return lambda i: engine.infer(images[i])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", default="tiny", choices=("tiny", "small", "base", "bevdet"))
+    ap.add_argument("--model", default="tiny",
+                    choices=("tiny", "small", "base", "bevdet", "yolox_x", "centernet_r18"))
     ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--quant", default="none", choices=tuple(QUANT))
@@ -120,6 +146,8 @@ def main(argv=None):
     count = 2 * args.frames + 2
     if args.model == "bevdet":
         infer = bevdet_frames(over, count)
+    elif args.model in ("yolox_x", "centernet_r18"):
+        infer = det2d_frames(args.model, over, count)
     else:
         cfg = getattr(configs, f"bevformer_{args.model}")(**over)
         engine = BEVFormerEngine(cfg, seed=0)
@@ -164,6 +192,7 @@ def main(argv=None):
     device_ms = sum(by_family.values())
     res = dict(
         card=card, model=args.model, dtype=args.dtype, quant=args.quant, frames=n,
+        batch=DET2D_BATCH if args.model in ("yolox_x", "centernet_r18") else 1,
         latency_ms_median=float(np.median(lat)), latency_ms=lat, peak_memory_mb=peak_mb,
         profiled_wall_ms_per_frame=window_ms / n, device_ms_per_frame=device_ms,
         device_busy_share=busy / window_ms, kernels_per_frame=len(kernels) / n,

@@ -160,13 +160,15 @@ def temporal_loss_fn(model: BEVFormer, batch) -> Tuple[torch.Tensor, Dict]:
     return _normalized_loss(outputs, batch, model.cfg.num_classes)
 
 
-def warmup_cosine(count: int, peak: float, warmup: int, total: int) -> float:
+def warmup_cosine(count: int, peak: float, warmup: int, total: int,
+                  end_fraction: float = 1e-3) -> float:
     """optax's warmup_cosine_decay_schedule(0, peak, warmup, total,
-    end=peak * 1e-3) at step `count`: linear from 0 over `warmup` steps,
-    then a cosine down to the end value at `total`."""
+    end=peak * end_fraction) at step `count`: linear from 0 over `warmup`
+    steps, then a cosine down to the end value at `total`.  BEVFormer's
+    recipe ends at 1e-3 of the peak; optax's default (BEVDet's) at 0."""
     if count < warmup:
         return peak * count / warmup
-    alpha = 1e-3
+    alpha = end_fraction
     decay = total - warmup
     t = min(count - warmup, decay)
     return peak * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * t / decay)) + alpha)
@@ -182,7 +184,7 @@ class Optimizer:
       wd * p), the rate from the schedule at the step count before it
       moves, so the first step's rate is 0 under a warmup;
     - parameters named `img_backbone.*` take `backbone_lr_mult` x the whole
-      update.
+      update (BEVDet's recipe passes 1.0: one rate for every parameter).
     A parameter that got no gradient is updated as with a zero gradient.
     Without `total_steps` the rate is constant.  The update is written out
     with in-place foreach ops rather than taken from `torch.optim`: it moves
@@ -194,7 +196,7 @@ class Optimizer:
     def __init__(self, model: nn.Module, learning_rate: float = 2e-4,
                  weight_decay: float = 0.01, backbone_lr_mult: float = 0.1,
                  total_steps: Optional[int] = None, warmup_steps: int = 500,
-                 grad_clip: float = 35.0):
+                 grad_clip: float = 35.0, end_fraction: float = 1e-3):
         head, backbone = [], []
         for name, p in model.named_parameters():
             (backbone if "img_backbone" in name.split(".") else head).append(p)
@@ -202,6 +204,7 @@ class Optimizer:
         self.params = head + backbone
         self.peak, self.warmup, self.grad_clip = learning_rate, warmup_steps, grad_clip
         self.weight_decay = weight_decay
+        self.end_fraction = end_fraction
         self.total = None if total_steps is None else max(total_steps, warmup_steps + 1)
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
@@ -210,7 +213,7 @@ class Optimizer:
     def lr(self, count: int) -> float:
         if self.total is None:
             return self.peak
-        return warmup_cosine(count, self.peak, self.warmup, self.total)
+        return warmup_cosine(count, self.peak, self.warmup, self.total, self.end_fraction)
 
     def zero_grad(self) -> None:
         for p in self.params:

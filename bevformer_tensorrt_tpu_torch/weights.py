@@ -1,11 +1,15 @@
 """Weights of the port: conversion from the JAX package's flax variables
-(BEVFormer's and BEVDet's trees), and a seeded initialisation.
+(the trees of BEVFormer, BEVDet, YOLOX and CenterNet), and a seeded
+initialisation.
 
 The port names every submodule as the flax module of the same role, so a
 flax path `a/b/kernel` becomes the state_dict key `a.b.weight`:
 
   Dense kernel [in, out]   -> weight [out, in]
   Conv kernel HWIO         -> weight OIHW (DeformConv2d's own kernel too)
+  ConvTranspose kernel HWIO of a `deconv*` module -> weight [in, out, kh, kw],
+                              spatially flipped (flax correlates where torch's
+                              transposed conv convolves)
   LayerNorm / FrozenBN scale -> weight;  bias -> bias
   FrozenBN batch_stats mean/var -> buffers mean/var
   embedding tables (bev/query embeddings, cams/level embeds,
@@ -54,6 +58,8 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
         *mod, leaf = path
         if leaf == "kernel" and arr.ndim == 2:
             name, arr = "weight", arr.T
+        elif leaf == "kernel" and arr.ndim == 4 and mod and mod[-1].startswith("deconv"):
+            name, arr = "weight", arr[::-1, ::-1].transpose(2, 3, 0, 1)
         elif leaf == "kernel" and arr.ndim == 4:
             name, arr = "weight", arr.transpose(3, 2, 0, 1)
         elif leaf == "scale" and arr.ndim == 1:
@@ -64,7 +70,7 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             name = leaf
         else:
             raise KeyError(f"params_from_jax: unconsumed leaf params/{'/'.join(path)} {arr.shape}")
-        sd[".".join((*mod, name))] = torch.tensor(np.asarray(arr, np.float32))
+        sd[".".join((*mod, name))] = torch.tensor(np.ascontiguousarray(arr, np.float32))
     for path, arr in _walk(variables.get("batch_stats", {})):
         if path[-1] not in ("mean", "var"):
             raise KeyError(f"params_from_jax: unconsumed leaf batch_stats/{'/'.join(path)}")
@@ -89,7 +95,9 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded initialisation, the JAX package's initialisers in kind:
     LeCun-normal dense and conv kernels, zero biases (the classification
-    output's prior -4.595, BEVDet's heatmap prior -2.19), unit norms, unit-normal embedding tables and
+    output's prior -4.595, the heatmap prior -2.19 of BEVDet and CenterNet),
+    LeCun-normal transposed-conv kernels (fan-in: input channels x taps),
+    unit norms, unit-normal embedding tables and
     uniform [0, 1) positional tables.  Draws on the CPU from `generator`,
     then copies into the model's parameters, so a seed gives the same
     weights on every device."""
@@ -106,8 +114,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             fill(m.weight, normal(1.0 / math.sqrt(fan_in)))
             if getattr(m, "bias", None) is not None:
                 cls_out = name.split(".")[-1] == "out" and ".cls_branch" in f".{name}"
-                heatmap = name.endswith("pts_bbox_head.heatmap.conv2")
+                heatmap = name.endswith(("pts_bbox_head.heatmap.conv2", "bbox_head.heatmap_out"))
                 m.bias.fill_(-4.595 if cls_out else HEATMAP_PRIOR if heatmap else 0.0)
+        elif isinstance(m, nn.ConvTranspose2d):
+            fan_in = m.weight.shape[0] * m.weight[0, 0].numel()
+            fill(m.weight, normal(1.0 / math.sqrt(fan_in)))
         elif isinstance(m, (nn.LayerNorm, FrozenBN)):
             m.weight.fill_(1.0)
             m.bias.fill_(0.0)

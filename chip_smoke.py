@@ -135,7 +135,29 @@ Phases (any failure exits non-zero before the result lines):
      against a float64 splat; `tools/bevdet/calibrate.py` (`max`, the 4
      frames) then `--quant int8`: 89 int8 products a frame, one frame bit
      for bit the plain product's, the product timed at every shape it took.
- 16. One JSON line of per-kernel numbers, the nvidia-smi line of the card,
+ 16. BEVDet-R50 training at full width on the same set (float32): 20 overfit
+     steps of the train CLI's step and recipe on one loader frame with its GT
+     (the loss falls; each step split into forward, backward and optimizer;
+     peak memory; no kernel of the TPU table runs: R50 has no DCN and the
+     splat is on stock ops, so every launch count stays 0);
+     `tools/bevdet/train.py` for 3 steps, its `.pth` read by
+     `tools/bevdet/evaluate.py`; 3 QAT steps (`--quant-scales`) from phase
+     15's checkpoint and calibration.
+ 17. YOLOX-x and CenterNet-R18 (DCNv2 neck) at 640 px, batch 8, on a
+     generated COCO-format set of 16 images (`tools/make_synthetic_coco.py`)
+     from seeded upstream-layout checkpoints: `tools/det2d/evaluate.py` in
+     float32 and bfloat16, `tools/det2d/calibrate.py` (`max`), then int8;
+     launches per batch (CenterNet: 3 im2col in float32; 1 fused DCN, 1
+     gather table and 2 im2col in bfloat16, where the transposed convs
+     compute float32 as in the JAX package; 3 int8-table DCN and 3 tables in
+     int8; every int8 convolution one int8 product), the kernel path against
+     the plain path on each batch (float32 max 5e-3 / rms 1e-3, bfloat16 rms
+     5e-2, int8 the backbone bit for bit, YOLOX's heads bit for bit,
+     CenterNet's heads rms 0.15), the pipelined loop's detections a serial
+     loop's, the batch latency and the eval loop's ms an image, peak memory;
+     the int8 product timed at every shape a batch launched, the DCN at
+     CenterNet's three neck shapes.
+ 18. One JSON line of per-kernel numbers, the nvidia-smi line of the card,
      and the final `{"ok": true, "device": ...}` line.
 Ahead of phase 10, three phases of their own:
   a. The DCN op from the int8 table (the fused kernel, float32 and
@@ -195,6 +217,8 @@ from bevformer_tensorrt_tpu_torch.data.nuscenes import (
 from bevformer_tensorrt_tpu_torch.models.backbones.resnet import DeformConv2d
 from bevformer_tensorrt_tpu_torch.models.detectors.bevdet import BEVDet
 from bevformer_tensorrt_tpu_torch.models.detectors.bevformer import BEVFormer
+from bevformer_tensorrt_tpu_torch.models.detectors.centernet import CenterNet
+from bevformer_tensorrt_tpu_torch.models.detectors.yolox import YOLOX
 from bevformer_tensorrt_tpu_torch.models.layers import QConv, QDense
 from bevformer_tensorrt_tpu_torch.models.modules.encoder import cam_budget_overflow
 from bevformer_tensorrt_tpu_torch.ops import KERNEL_WRAPPERS, _cuda, reset_launch_counts
@@ -203,25 +227,32 @@ from bevformer_tensorrt_tpu_torch.ops import dcn as dcn_ops
 from bevformer_tensorrt_tpu_torch.ops import int8_matmul as int8_ops
 from bevformer_tensorrt_tpu_torch.ops import msda as msda_ops
 from bevformer_tensorrt_tpu_torch.ops.bev_pool import bev_pool_v2
+from bevformer_tensorrt_tpu_torch.quant.calibrate import qdq_sites
 from bevformer_tensorrt_tpu_torch.quant.fold import attach_quant_scales, quantize_weight
 from bevformer_tensorrt_tpu_torch.quant.observers import CalibrationResult
 from bevformer_tensorrt_tpu_torch.quant.policy import load_policy
 from bevformer_tensorrt_tpu_torch.quant.qdq import QDQ
-from bevformer_tensorrt_tpu_torch.runtime.bevdet_engine import BEVDetEngine
+from bevformer_tensorrt_tpu_torch.runtime import det2d_engine
+from bevformer_tensorrt_tpu_torch.runtime.bevdet_engine import BEVDetEngine, rig_ranks
 from bevformer_tensorrt_tpu_torch.runtime.engine import BEVFormerEngine
 from bevformer_tensorrt_tpu_torch.runtime.synthetic import synthetic_frames
 from bevformer_tensorrt_tpu_torch.ops import gather_probe as probe_ops
 from bevformer_tensorrt_tpu_torch.runtime.torch_import import (
     bevdet_upstream_layout,
+    centernet_upstream_layout,
     load_bevformer_checkpoint,
     load_torch_checkpoint,
     upstream_layout,
+    yolox_upstream_layout,
 )
 from bevformer_tensorrt_tpu_torch.native import normalize_pad_chw_native
 from bevformer_tensorrt_tpu_torch.tools import calibrate, evaluate, kernel_bench
 from bevformer_tensorrt_tpu_torch.tools import train as train_cli
 from bevformer_tensorrt_tpu_torch.tools.bevdet import calibrate as bevdet_calibrate
 from bevformer_tensorrt_tpu_torch.tools.bevdet import evaluate as bevdet_evaluate
+from bevformer_tensorrt_tpu_torch.tools.bevdet import train as bevdet_train
+from bevformer_tensorrt_tpu_torch.tools.det2d import calibrate as det2d_calibrate
+from bevformer_tensorrt_tpu_torch.tools.det2d import evaluate as det2d_evaluate
 from bevformer_tensorrt_tpu_torch.tools.bevdet.evaluate import checkpoint_state_dict
 from bevformer_tensorrt_tpu_torch.tools import kernel_cases as kc
 from bevformer_tensorrt_tpu_torch.tools.kernel_cases import (
@@ -232,7 +263,6 @@ from bevformer_tensorrt_tpu_torch.tools.kernel_cases import (
     MSDA_EDGE_SHAPES,
     MSDA_INT8_SHAPES,
     MSDA_SHAPES,
-    PEAK_FLOPS,
     PROBE_SHAPES,
     bound,
     device_ms,
@@ -2275,6 +2305,413 @@ def phase_bevdet(card, dev, gen, root, work):
     return res
 
 
+# ---- phase 16: BEVDet-R50 training --------------------------------------------
+
+BEVDET_OVERFIT_STEPS = 20
+BEVDET_CLI_STEPS = 3
+BEVDET_QAT_STEPS = 3
+
+
+def bevdet_timed_steps(model, opt, rank_args, batch, n):
+    """n BEVDet steps (the train CLI's), each split by synchronised host
+    clocks into forward (with the loss), backward and optimizer; the losses
+    and the steps' peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, split = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        m = bevdet_train.loss_fn(model, rank_args, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m["loss"].backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        losses.append(float(m["loss"].detach()))
+        split.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3))
+    med = np.median(np.array(split), axis=0)
+    return dict(losses=losses, forward_ms=float(med[0]), backward_ms=float(med[1]),
+                optimizer_ms=float(med[2]), step_ms=float(np.median([sum(s) for s in split])),
+                peak_memory_mb=torch.cuda.max_memory_allocated() / 1e6, steps=n)
+
+
+def step_kernels(fn, top=12):
+    """The device kernels of one call of `fn` under torch.profiler, summed by
+    name, the largest first: [{name, ms, calls}]."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms, calls = collections.defaultdict(float), collections.defaultdict(int)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms[e.name] += e.time_range.elapsed_us() / 1e3
+            calls[e.name] += 1
+    return [dict(name=k[:160], ms=v, calls=calls[k])
+            for k, v in sorted(ms.items(), key=lambda kv: -kv[1])[:top]]
+
+
+def phase_bevdet_train(card, root, work, tier="r50", ranks_pad=400000, device="cuda"):
+    """BEVDet-R50 training at full width (6 x 256x704, depth 1-60 m in 59
+    bins, 128x128 BEV, the ranks of the set's first rig), float32: 20
+    overfit steps of the train CLI's step and recipe on one loader frame with
+    its GT (the loss falls; each step split into forward, backward and
+    optimizer; peak memory); `tools/bevdet/train.py` for a few steps, its
+    `.pth` read by `tools/bevdet/evaluate.py`; then 3 QAT steps
+    (`--quant-scales`) from the BEVDet phase's checkpoint and calibration.
+    No kernel of the TPU table runs here: R50 has no DCN and the splat is on
+    stock ops (the launch counts stay 0)."""
+    cfg = bevdet_evaluate.make_config(tier)
+    infos = str(root / "nuscenes_infos_synthetic.pkl")
+    frames = bevdet_evaluate.frames_of(cfg, infos, str(root))
+    ranks = rig_ranks(cfg, frames.infos[0], ranks_pad, intervals=True)
+    dev = torch.device(device)
+    rank_args = tuple(torch.as_tensor(np.asarray(a), dtype=torch.int64, device=dev)
+                      for a in (ranks.ranks_depth, ranks.ranks_feat, ranks.ranks_bev,
+                                ranks.interval_starts, ranks.interval_lengths))
+    frame = frames.frame(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in bevdet_train.frame_batch(frame).items()}
+    model = init_weights(BEVDet(cfg), torch.Generator().manual_seed(0)).to(dev).train()
+    opt = bevdet_train.make_optimizer(model, 2e-4, BEVDET_OVERFIT_STEPS)
+    reset_launch_counts()
+    steps = bevdet_timed_steps(model, opt, rank_args, batch, BEVDET_OVERFIT_STEPS)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    losses = steps["losses"]
+    log(f"bevdet {tier} train on {card}: {BEVDET_OVERFIT_STEPS} overfit steps on one loader frame "
+        f"({int((frame.gt_labels >= 0).sum())} GT), loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(min {min(losses):.4f}); step {steps['step_ms']:.1f} ms median (forward "
+        f"{steps['forward_ms']:.1f}, backward {steps['backward_ms']:.1f}, optimizer "
+        f"{steps['optimizer_ms']:.1f}); peak {steps['peak_memory_mb']:.0f} MB; no hand-written "
+        f"kernel runs in BEVDet training (R50 has no DCN, the splat is stock ops): launches "
+        f"{dict(zip(COUNT_NAMES, counts))}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bevdet {tier} train: the loss did not fall: {losses}")
+    if any(counts):
+        raise AssertionError(f"bevdet {tier} train: unexpected kernel launches {counts}")
+    res = dict(overfit=steps, valid_points=int((np.asarray(ranks.ranks_bev) >= 0).sum()),
+               step_kernels=step_kernels(lambda: bevdet_timed_steps(model, opt, rank_args, batch,
+                                                                     1)))
+    log("bevdet train step's top device kernels (torch.profiler, one step): " + "; ".join(
+        f"{k['ms']:.2f} ms x{k['calls']} {k['name'][:70]}" for k in res["step_kernels"][:8]))
+    del model, opt, batch
+    torch.cuda.empty_cache()
+
+    out = str(work / "bevdet_train.pth")
+    common = ["--model", tier, "--infos", infos, "--data-root", str(root), "--ranks-pad",
+              str(ranks_pad), "--device", device]
+    cli = bevdet_train.main(common + ["--steps", str(BEVDET_CLI_STEPS), "--log-every", "1",
+                                      "--out", out])
+    ev = bevdet_evaluate.main(common + ["--checkpoint", out, "--limit", "2"])
+    trained = {k: v.cpu() for k, v in cli.model.state_dict().items()}
+    if not all(torch.equal(ev.engine.model.state_dict()[k].cpu(), v) for k, v in trained.items()):
+        raise AssertionError("bevdet train CLI: the evaluator's weights are not the trained ones")
+    if not all(np.isfinite(m["loss"]) for m in cli.metrics) or not all(
+            np.isfinite(v) for v in ev.metrics.values()):
+        raise AssertionError(f"bevdet train CLI: {cli.metrics} / {ev.metrics}")
+    res["cli"] = dict(losses=[m["loss"] for m in cli.metrics], eval_metrics=ev.metrics)
+    log(f"bevdet train CLI: {BEVDET_CLI_STEPS} steps, losses "
+        f"{[round(m['loss'], 4) for m in cli.metrics]}; tools/bevdet/evaluate.py --checkpoint "
+        f"reads the .pth (NDS {ev.metrics['NDS']:.4f})")
+    del cli, ev
+    torch.cuda.empty_cache()
+
+    qat_out = str(work / "bevdet_qat.pth")
+    qat = bevdet_train.main(common + [
+        "--checkpoint", str(work / f"bevdet_{tier}_upstream.pth"), "--quant-scales",
+        str(work / "bevdet_scales.npz"), "--steps", str(BEVDET_QAT_STEPS), "--log-every", "1",
+        "--out", qat_out])
+    if qat.model.cfg.quant is not True or not all(np.isfinite(m["loss"]) for m in qat.metrics):
+        raise AssertionError(f"bevdet QAT: {qat.metrics}")
+    res["qat"] = dict(losses=[m["loss"] for m in qat.metrics], sites=len(qdq_sites(qat.model)))
+    log(f"bevdet {tier} QAT on {card}: {BEVDET_QAT_STEPS} steps from the BEVDet phase's `max` "
+        f"scales ({res['qat']['sites']} sites), losses "
+        f"{[round(x, 4) for x in res['qat']['losses']]}")
+    del qat
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---- phase 17: YOLOX-x and CenterNet-R18 --------------------------------------
+
+DET2D_IMAGES = 16  # the generated COCO set, 640 px
+DET2D_BATCH = 8
+DET2D_LATENCY_BATCHES = 5  # timed after one warm-up batch
+DET2D_REPEATS = 2  # the eval loop timed over the set repeated
+# YOLOX takes raw pixels (0-255): the seeded stem conv is scaled down, or
+# LeCun weights drawn for unit inputs overflow exp() in the box sizes
+YOLOX_STEM_SCALE = 1 / 64
+# the int8 bars of section 2 past the backbone (CenterNet: after the int8
+# DCN, a float32 difference of one ulp flips roundings at the next site)
+DET2D_INT8_RMS = 0.15
+DET2D_F32_TOL = dict(max=5e-3, rms=1e-3)  # phase 5's output bars
+
+
+def det2d_checkpoint(name, work):
+    """A seeded upstream-layout checkpoint of YOLOX-x or CenterNet-R18."""
+    cfg = det2d_engine.make_config(name)
+    model = init_weights((YOLOX if name.startswith("yolox") else CenterNet)(cfg),
+                         torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        if name.startswith("yolox"):
+            model.backbone.stem.conv.conv.weight.mul_(YOLOX_STEM_SCALE)
+        for m in model.modules():
+            if isinstance(m, DeformConv2d):
+                m.conv_offset.weight.mul_(OFFSET_CONV_SCALE)
+    up = (yolox_upstream_layout if name.startswith("yolox") else centernet_upstream_layout)
+    path = work / f"{name}_upstream.pth"
+    torch.save(up(cfg, model.state_dict()), path)
+    return path
+
+
+def det2d_want(name, mode, layers):
+    """Launches per batch on the kernel path."""
+    if mode == "int8":
+        extra = dict(dcn_int8=3, dcn_table=3) if name.startswith("centernet") else {}
+        return counts_of(int8_gemm=layers, **extra)
+    if name.startswith("yolox"):
+        return counts_of()
+    # float32 maps take the im2col route; under bfloat16 only the first DCN
+    # sees a bfloat16 map (the transposed convs compute float32, as in JAX)
+    return counts_of(dcn_im2col=3) if mode == "float32" else counts_of(dcn=1, dcn_table=1,
+                                                                      dcn_im2col=2)
+
+
+def det2d_kernel_vs_plain(engine, images, mode):
+    """The batch's head maps on the kernel path against the plain path on
+    the card; int8 also compares the backbone's output bit for bit."""
+    kept = {}
+    hook = engine.model.backbone.register_forward_hook(
+        lambda m, i, o: kept.setdefault(len(kept), [t.clone() for t in o]))
+    try:
+        with torch.inference_mode():
+            got = engine.heads(images)
+            with plain_versions():
+                want = engine.heads(images)
+            torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    flat = lambda h: (h.items() if isinstance(h, dict)  # noqa: E731
+                      else ((f"l{i}_{k}", v) for i, o in enumerate(h) for k, v in o.items()))
+    got, want = dict(flat(got)), dict(flat(want))
+    errs = {k: rel_errors(got[k], want[k]) for k in want}
+    backbone_equal = all(torch.equal(a, b) for a, b in zip(kept[0], kept[1]))
+    return errs, backbone_equal, all(torch.equal(got[k], want[k]) for k in want)
+
+
+def det2d_run(card, name, mode, ann, img_root, ckpt, scales=None):
+    """`tools/det2d/evaluate.py` through its `main` on the card at batch 8:
+    launches per batch, finite metrics, the pipelined loop's detections a
+    serial loop's, the kernel path against the plain path on each batch,
+    the batch latency and the eval loop's ms an image, peak memory."""
+    dtype = "bfloat16" if mode == "bfloat16" else "float32"
+    argv = [name, "--ann", ann, "--img-root", img_root, "--checkpoint", str(ckpt), "--batch",
+            str(DET2D_BATCH), "--dtype", dtype] + (["--quant-scales", scales] if scales else [])
+    what = f"{name} {mode}"
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    res = det2d_evaluate.main(argv)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    engine, ds, indices = res.engine, res.dataset, res.indices
+    batches = len(indices) // DET2D_BATCH
+    layers = int8_layers(engine.model)
+    want = tuple(batches * n for n in det2d_want(name, mode, layers))
+    log(f"{what} main path: launches over {batches} batches of {DET2D_BATCH} "
+        f"{dict(zip(COUNT_NAMES, counts))} ({layers} int8 layers); peak {peak_mb:.0f} MB")
+    if counts != want or (mode == "int8" and layers == 0):
+        raise AssertionError(f"{what}: expected {want} launches, got {counts}")
+    if not all(np.isfinite(v) for v in res.metrics.values()):
+        raise AssertionError(f"{what}: metrics {res.metrics}")
+    serial = det2d_evaluate.eval_loop(engine, ds, indices, DET2D_BATCH, pipelined=False)
+    for i, (a, b) in enumerate(zip(serial.detections, res.run.detections)):
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{what}: image {i}'s detections differ, pipelined vs serial")
+    images = [det2d_evaluate.batch_images([ds.sample(i) for i in indices[s:s + DET2D_BATCH]],
+                                          DET2D_BATCH, engine.cfg.img_size)
+              for s in range(0, len(indices), DET2D_BATCH)]
+    out = dict(launches=dict(zip(COUNT_NAMES, counts)), batches=batches, int8_layers=layers,
+               peak_memory_mb=peak_mb, metrics=res.metrics,
+               kept=[len(d[0]) for d in res.run.detections])
+    if any(counts):
+        errs = [det2d_kernel_vs_plain(engine, im, mode) for im in images]
+        worst = {k: {m: max(e[0][k][m] for e in errs) for m in ("max", "rms")} for k in errs[0][0]}
+        out.update(kernel_vs_plain=worst, backbone_equal=all(e[1] for e in errs),
+                   outputs_equal=all(e[2] for e in errs))
+        log(f"{what} kernel vs plain path on {len(images)} batches: backbone "
+            f"{'bit for bit' if out['backbone_equal'] else 'differs'}, outputs "
+            + ("bit for bit" if out["outputs_equal"] else ", ".join(
+                f"{k} max {e['max']:.2e} rms {e['rms']:.2e}" for k, e in worst.items())))
+        if mode == "int8":
+            bad = not out["backbone_equal"] or (
+                name.startswith("yolox") and not out["outputs_equal"]) or any(
+                e["rms"] > DET2D_INT8_RMS for e in worst.values())
+        elif mode == "bfloat16":
+            bad = any(e["rms"] > BF16_RMS_TOL for e in worst.values())
+        else:
+            bad = any(e["max"] > DET2D_F32_TOL["max"] or e["rms"] > DET2D_F32_TOL["rms"]
+                      for e in worst.values())
+        if bad:
+            raise AssertionError(f"{what}: the kernel path and the plain path part: {worst}")
+    lat = []
+    for i in range(DET2D_LATENCY_BATCHES + 1):
+        t0 = time.perf_counter()
+        engine.infer(images[i % len(images)])
+        torch.cuda.synchronize()
+        if i:
+            lat.append((time.perf_counter() - t0) * 1e3)
+    timed = det2d_evaluate.eval_loop(engine, ds, list(indices) * DET2D_REPEATS, DET2D_BATCH)
+    out.update(batch_latency_ms=lat, batch_latency_ms_median=float(np.median(lat)),
+               image_ms_engine=float(np.median(lat)) / DET2D_BATCH,
+               eval_loop_image_ms=float(np.mean(timed.latencies[1:]) * 1e3),
+               eval_loop_images=len(timed.detections),
+               post_ms_median=float(np.median(timed.post_ms)),
+               load_ms_median=det2d_load_ms(ds, indices))
+    log(f"{what} on {card}: batch latency median {out['batch_latency_ms_median']:.2f} ms "
+        f"({out['image_ms_engine']:.2f} ms an image) over {DET2D_LATENCY_BATCHES} batches after "
+        f"a warm-up; eval loop {out['eval_loop_image_ms']:.2f} ms an image over "
+        f"{out['eval_loop_images']} images (host: post-processing {out['post_ms_median']:.2f} "
+        f"ms, loading {out['load_ms_median']:.2f} ms an image, medians); kept "
+        f"{sum(out['kept'])} boxes; mAP "
+        f"{res.metrics['mAP']:.4f}")
+    return out, res
+
+
+def det2d_load_ms(ds, indices):
+    """Host ms of `CocoDataset.sample` (decode, letterbox, normalize), the
+    median over the images."""
+    ms = []
+    for i in indices:
+        t0 = time.perf_counter()
+        ds.sample(i)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+def centernet_dcn_rows(dev, gen, launches):
+    """The DCN at CenterNet-R18's three neck shapes (batch 8, 640 px)
+    against its plain version, in each way a batch runs it: float32 maps on
+    the im2col route (`ms` the im2col kernel, `op_ms` the route), the first
+    block's bfloat16 map on the fused kernel, and the int8 table (float32
+    activations, the fused kernel after the table kernel); each beside the
+    plain op, cuDNN's `F.conv2d` of the same shape (a yardstick) and the op's
+    bound.  `launches` gives per mode the launches per batch at each shape."""
+    rows = []
+    for mode in ("float32", "bfloat16", "int8"):
+        dtype = torch.bfloat16 if mode == "bfloat16" else torch.float32
+        for name, spec in kc.DCN_CENTERNET_SHAPES.items():
+            if mode == "bfloat16" and name != "ct_dcn0":
+                continue  # the later blocks see float32 maps (the transposed convs' output)
+            N, Cin, H, W, Cout = spec[:5]
+            x, off, mask, weight, geo = kc.dcn_inputs(spec, dtype, gen, dev)
+            quant = "int8" if mode == "int8" else False
+            got = dcn_ops.modulated_deform_conv2d(x, off, mask, weight, None, quant=quant, **geo)
+            want = dcn_ops.modulated_deform_conv2d_plain(x, off, mask, weight, None, quant=quant,
+                                                         **geo)
+            torch.cuda.synchronize()
+            err = max_err(got, want, dtype, f"centernet dcn {name} {mode}")
+            del got, want
+            esz = x.element_size()
+            scale_bytes = 0
+            if mode == "int8":
+                _, scale = dcn_ops.dcn_gather_table(x, "NCHW", dcn_ops.dcn_ch_group(Cin))
+                scale_bytes = scale.numel() * 4
+            b_ms, b_by = bound(*kc.dcn_op_work(spec, esz, scale_bytes), dtype)
+            wmat = dcn_ops.dcn_weight_matrix(weight, dtype) if mode != "float32" else None
+            op_ms = device_ms(lambda: dcn_ops.modulated_deform_conv2d(
+                x, off, mask, weight, None, quant=quant, wmat=wmat, **geo), 10, 3)
+            op_plain_ms = device_ms(lambda: dcn_ops.modulated_deform_conv2d_plain(
+                x, off, mask, weight, None, quant=quant, **geo), n=2, repeats=3)
+            wd = weight.to(dtype)
+            lib_ms = device_ms(lambda: F.conv2d(x, wd, None, 1, 1), 10, 3)
+            row = dict(shape=name, mode=mode, dtype=dtype_name(dtype), x=[N, Cin, H, W],
+                       Cout=Cout, op_max_abs_err=err, op_ms=op_ms, op_plain_ms=op_plain_ms,
+                       op_bound_ms=b_ms, op_bound_by=b_by, conv2d_ms=lib_ms, library_ms=None,
+                       launches_per_batch=launches.get(mode, {}).get(name, 0))
+            if mode == "float32":
+                nbytes, flops, _ = kc.dcn_work(spec, esz)
+                row["im2col_bound_ms"], row["im2col_bound_by"] = bound(nbytes, flops, dtype)
+                row["im2col_ms"] = device_ms(
+                    lambda: dcn_ops.deform_im2col(x, off, mask, (3, 3), **geo), 10, 3)
+                row["im2col_plain_ms"] = device_ms(
+                    lambda: dcn_ops.deform_im2col_plain(x, off, mask, (3, 3), **geo), n=2,
+                    repeats=3)
+            else:
+                chg = dcn_ops.dcn_ch_group(Cin) if mode == "int8" else None
+                table = ((lambda: dcn_ops.dcn_gather_table(x, "NCHW", chg)) if chg
+                         else (lambda: dcn_ops.dcn_gather_table(x)))
+                row["table_ms"] = device_ms(table, 10, 3)
+                t_bytes = x.numel() * (esz + 1) + scale_bytes if chg else 2 * x.numel() * esz
+                row["table_bound_ms"], row["table_bound_by"] = bound(t_bytes, 0, dtype)
+            rows.append(row)
+            log(f"centernet dcn {name} {mode:8s} x {[N, Cin, H, W]} -> {Cout}: err {err:.3e}  op "
+                f"{op_ms:.4f} ms (bound {b_ms * 1e3:.1f} us, {b_by})  plain {op_plain_ms:.3f} ms  "
+                f"conv2d {lib_ms:.4f} ms"
+                + (f"  im2col {row['im2col_ms']:.4f} ms" if "im2col_ms" in row else "")
+                + (f"  table {row['table_ms']:.4f} ms" if "table_ms" in row else "")
+                + f"  launches a batch {row['launches_per_batch']}")
+            del x, off, mask, weight, wd
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_det2d(card, dev, gen, work, models=("yolox_x", "centernet_r18"), size=640):
+    """YOLOX-x and CenterNet-R18 (DCNv2 neck) at 640 px, batch 8, on a
+    generated COCO-format set of 16 images (`tools/make_synthetic_coco.py`)
+    from seeded upstream-layout checkpoints: `tools/det2d/evaluate.py` in
+    float32 and bfloat16, `tools/det2d/calibrate.py` (`max`), then int8;
+    launches per batch, the kernel path against the plain path, the
+    pipelined loop against a serial one, latencies and peak memory; the int8
+    product timed at every shape a batch launched and the DCN at CenterNet's
+    three neck shapes."""
+    root = work / "coco"
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, str(REPO / "tools" / "make_synthetic_coco.py"), str(root),
+                    "--images", str(DET2D_IMAGES), "--size", str(size)],
+                   check=True, capture_output=True, timeout=300)
+    ann, img_root = str(root / "instances_synthetic.json"), str(root / "images")
+    res = dict(set_s=time.perf_counter() - t0)
+    dcn_launches = {}
+    for name in models:
+        ckpt = det2d_checkpoint(name, work)
+        rec = {}
+        for mode in ("float32", "bfloat16"):
+            rec[mode], ev = det2d_run(card, name, mode, ann, img_root, ckpt)
+            del ev
+            torch.cuda.empty_cache()
+        scales = str(work / f"{name}_scales.npz")
+        t0 = time.perf_counter()
+        det2d_calibrate.main([name, "--ann", ann, "--img-root", img_root, "--checkpoint",
+                              str(ckpt), "--length", str(DET2D_IMAGES), "--batch",
+                              str(DET2D_BATCH), "--method", "max", "--out", scales])
+        calib_s = time.perf_counter() - t0
+        rec["int8"], ev = det2d_run(card, name, "int8", ann, img_root, ckpt, scales)
+        rec["int8"]["calibrate_s"] = calib_s
+        engine, ds = ev.engine, ev.dataset
+        images = det2d_evaluate.batch_images([ds.sample(i) for i in range(DET2D_BATCH)],
+                                             DET2D_BATCH, engine.cfg.img_size)
+        shapes, _, _ = gemm_shapes_of(engine.model, lambda: engine.heads(images))
+        named = {f"{M}x{K}x{N}": (M, K, N) for (M, K, N) in sorted(shapes)}
+        counts = {f"{M}x{K}x{N}": c for (M, K, N), c in shapes.items()}
+        rec["int8"]["gemm_shapes"] = phase_int8_gemm(dev, gen, named, counts, reps=(5, 3))
+        res[name] = rec
+        if name.startswith("centernet"):
+            dcn_launches = {"float32": {n: 1 for n in kc.DCN_CENTERNET_SHAPES},
+                            "bfloat16": {"ct_dcn0": 1},
+                            "int8": {n: 1 for n in kc.DCN_CENTERNET_SHAPES}}
+        del ev, engine
+        torch.cuda.empty_cache()
+    res["centernet_dcn"] = centernet_dcn_rows(dev, gen, dcn_launches)
+    return res
+
+
 def frame_sums(rows, frame, library, extra=(), dtype="float32", key="launches_per_frame"):
     """The `dtype` launches of one `frame` (tiny, base) at the main path's
     shapes, summed: ms per frame.  `extra` names further row keys to sum."""
@@ -2336,6 +2773,49 @@ def table_rows(rows):
                  bound_ms=r["table_bound_ms"], bound_by=r["table_bound_by"],
                  max_abs_err=r["table_max_abs_err"], library_ms=None)
             for r in rows if r.get("table_ms") is not None]
+
+
+def add_det2d(kernels, det2d):
+    """The 2D phase's numbers on the kernels line: per CenterNet-R18 batch
+    the DCN entries (float32 im2col route, the bfloat16 fused kernel, the
+    int8 table and its table kernel), per YOLOX-x and CenterNet-R18 int8
+    batch the int8 product; `*_launches` are the main-path counts over the
+    phase's run of the evaluator (2 batches of 8)."""
+    ct, rows = det2d["centernet_r18"], det2d["centernet_dcn"]
+    by_name = {k["name"]: k for k in kernels}
+
+    def sums(mode, ms, plain, bnd, extra=()):
+        main = [r for r in rows if r["mode"] == mode and r["launches_per_batch"]]
+        tot = lambda key: float(sum(r[key] * r["launches_per_batch"] for r in main))  # noqa: E731
+        out = {"launches_per_batch": sum(r["launches_per_batch"] for r in main),
+               "ms": tot(ms), "bound_ms": tot(bnd),
+               "bound_by": max(main, key=lambda r: r[bnd])[bnd.replace("_ms", "_by")],
+               "max_abs_err": max(r["op_max_abs_err"] for r in main),
+               "conv2d_ms": tot("conv2d_ms"), **{k: tot(k) for k in extra}}
+        if plain:
+            out["plain_ms"] = tot(plain)
+        return out
+
+    for name, mode, key, args in (
+            ("dcn_im2col", "float32", "dcn_im2col",
+             ("im2col_ms", "im2col_plain_ms", "im2col_bound_ms", ("op_ms", "op_plain_ms"))),
+            ("dcn_fused", "bfloat16", "dcn", ("op_ms", "op_plain_ms", "op_bound_ms")),
+            ("dcn_fused_int8", "int8", "dcn_int8", ("op_ms", "op_plain_ms", "op_bound_ms")),
+            ("dcn_gather_table", "int8", "dcn_table", ("table_ms", None, "table_bound_ms"))):
+        entry = by_name[name]
+        entry["centernet_r18_launches"] = ct[mode]["launches"][key]
+        entry.update({f"centernet_r18_{k}": v for k, v in sums(mode, *args).items()})
+        entry["shapes"] = entry["shapes"] + [r for r in rows if r["mode"] == mode]
+        entry["per"] += ("; centernet_r18_* one CenterNet-R18 batch of 8 at 640 px (conv2d_ms "
+                         "cuDNN's F.conv2d of the same shapes, a yardstick)")
+    gemm = by_name["int8_gemm"]
+    for model in ("yolox_x", "centernet_r18"):
+        rec = det2d[model]["int8"]
+        gemm[f"{model}_launches"] = rec["launches"]["int8_gemm"]
+        gemm.update({f"{model}_{k.replace('_per_frame', '_per_batch')}": v
+                     for k, v in gemm_frame_sums(rec["gemm_shapes"]).items()})
+        gemm["shapes"] = gemm["shapes"] + rec["gemm_shapes"]
+    gemm["per"] += "; yolox_x_* and centernet_r18_* one int8 batch of 8 at 640 px"
 
 
 def main(argv=None):
@@ -2409,7 +2889,9 @@ def main(argv=None):
             ("eval", lambda: phase_eval(card, root, work)),
             ("train", lambda: phase_train(card, dev, gen, root, work)),
             ("qat", lambda: phase_qat(card, dev, root, work)),
-            ("bevdet", lambda: phase_bevdet(card, dev, gen, root, work))):
+            ("bevdet", lambda: phase_bevdet(card, dev, gen, root, work)),
+            ("bevdet_train", lambda: phase_bevdet_train(card, root, work)),
+            ("det2d", lambda: phase_det2d(card, dev, gen, work))):
         t0 = time.perf_counter()
         res[phase] = fn()
         seconds[phase] = time.perf_counter() - t0
@@ -2541,10 +3023,13 @@ def main(argv=None):
                    "for gather_blend; launches is the count of one run of the kernel bench "
                    "tool",
             "shapes": rows})
+    add_det2d(kernels, res["det2d"])
     for k in kernels:
         if k.get("main_path", True) and (k["launches"] < 1 or k.get("base_launches", 1) < 1
                                          or k.get("small_launches", 1) < 1
-                                         or k.get("bevdet_launches", 1) < 1):
+                                         or k.get("bevdet_launches", 1) < 1
+                                         or k.get("centernet_r18_launches", 1) < 1
+                                         or k.get("yolox_x_launches", 1) < 1):
             raise AssertionError(f"kernel {k['name']} was not launched on the main path")
     res["kernels"] = kernels
     if args.out:

@@ -72,7 +72,7 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 67
+    assert int(res.stdout.split()[-1]) >= 86
     for module in ("quant.qdq", "quant.calibrate", "quant.fold", "ops.int8_matmul",
                    "tools.calibrate", "ops.gather_probe", "runtime.torch_import",
                    "tools.kernel_bench", "tools.kernel_cases", "data.nuscenes",
@@ -82,7 +82,13 @@ def test_port_imports_no_jax():
                    "models.necks.view_transformer", "ops.bev_pool",
                    "models.backbones.bev_resnet", "models.heads.centerpoint_head",
                    "models.detectors.bevdet", "runtime.bevdet_engine", "tools.bevdet.evaluate",
-                   "tools.bevdet.calibrate", "tools.accuracy_cycle"):
+                   "tools.bevdet.calibrate", "tools.accuracy_cycle", "train.losses_bevdet",
+                   "tools.bevdet.train", "tools.accuracy_cycle_family", "configs.yolox",
+                   "configs.centernet", "models.backbones.csp_darknet", "models.necks.pafpn",
+                   "models.necks.ct_resnet_neck", "models.heads.yolox_head",
+                   "models.heads.centernet_head", "models.detectors.yolox",
+                   "models.detectors.centernet", "core.nms2d", "data.coco", "evalsuite.coco_map",
+                   "runtime.det2d_engine", "tools.det2d.evaluate", "tools.det2d.calibrate"):
         assert os.path.exists(os.path.join(REPO, "bevformer_tensorrt_tpu_torch",
                                            *module.split(".")) + ".py"), module
 
@@ -384,17 +390,23 @@ def test_library_name_hashes_the_sources_it_includes(tmp_path, monkeypatch):
     assert "dcn_fused_split" not in _cuda.KERNELS  # built on demand by the bench alone
 
 
-@pytest.mark.parametrize("tool", ["bevdet.evaluate", "bevdet.calibrate", "accuracy_cycle"])
+@pytest.mark.parametrize("tool", ["bevdet.evaluate", "bevdet.calibrate", "accuracy_cycle",
+                                  "bevdet.train", "accuracy_cycle_family", "det2d.evaluate",
+                                  "det2d.calibrate"])
 def test_new_clis_default_to_cuda(tool, tmp_path, monkeypatch):
-    """The BEVDet CLIs and the accuracy cycle run on CUDA unless `--device
-    cpu` is given: without a card they raise before any work."""
+    """The BEVDet and 2D CLIs and the accuracy cycles run on CUDA unless
+    `--device cpu` is given: without a card they raise before any work."""
     import importlib
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     main = importlib.import_module(f"bevformer_tensorrt_tpu_torch.tools.{tool}").main
-    argv = [] if tool == "accuracy_cycle" else ["--infos", str(tmp_path / "none.pkl")]
-    argv += ["--out", str(tmp_path / "x.npz")] if tool == "bevdet.calibrate" else []
-    argv += ["--workdir", str(tmp_path / "w")] if tool == "accuracy_cycle" else []
+    cycle = tool.startswith("accuracy_cycle")
+    if tool.startswith("det2d"):
+        argv = ["yolox_micro", "--ann", str(tmp_path / "none.json"), "--img-root", str(tmp_path)]
+    else:
+        argv = [] if cycle else ["--infos", str(tmp_path / "none.pkl")]
+    argv += ["--out", str(tmp_path / "x.npz")] if tool.endswith("calibrate") else []
+    argv += ["--workdir", str(tmp_path / "w")] if cycle else []
     with pytest.raises(RuntimeError, match="CUDA"):
         main(argv)
     assert not (tmp_path / "w").exists()
@@ -431,3 +443,17 @@ def test_native_nms_has_no_fallback(tmp_path, monkeypatch):
     monkeypatch.setattr(native, "CXX", "g++")
     with pytest.raises(RuntimeError, match="failed for nms_rotated.cpp"):
         native.rotated_iou_matrix_native(boxes, boxes)
+    with pytest.raises(RuntimeError, match="failed for nms_rotated.cpp"):
+        native.nms_2d_native(boxes[:, :4], np.array([0.9, 0.8]), 0.5)
+
+
+@pytest.mark.parametrize("tool", ["train", "evaluate"])
+def test_left_out_flags_are_named(tool, capsys):
+    """The BEVFormer train and evaluate CLIs name the JAX CLI's flags they
+    leave out (multi-host `--distributed` among them) in their help."""
+    import importlib
+
+    main = importlib.import_module(f"bevformer_tensorrt_tpu_torch.tools.{tool}").main
+    with pytest.raises(SystemExit):
+        main(["--help"])
+    assert "Not ported from the JAX CLI: --distributed" in capsys.readouterr().out
