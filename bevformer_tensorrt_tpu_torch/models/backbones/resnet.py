@@ -51,7 +51,7 @@ class DeformConv2d(nn.Module):
         self.path: tuple = ()
         self.int8_table = quant == "int8"
         self.conv_offset = QConv(in_channels, deform_groups * 27, 3, stride, 1, quant=quant)
-        self.weight = nn.Parameter(torch.empty(features, in_channels, 3, 3))
+        self.weight = nn.Parameter(torch.zeros(features, in_channels, 3, 3))
         self._wmats: dict = {}  # dtype -> (the weight's identity, its matrix)
 
     def resolve_quant(self, path, exclude) -> None:
@@ -74,7 +74,16 @@ class DeformConv2d(nn.Module):
 
     def weight_matrix(self, dtype):
         """`dcn_weight_matrix(self.weight, dtype)`, made once per dtype and
-        weight state."""
+        weight state.  Under `torch.export` (fake parameters) the matrix kept
+        by an eager call is taken as it is, and the program holds it as a
+        constant; none kept raises (`runtime.export.export_program` runs the
+        module once first)."""
+        if torch.compiler.is_exporting():
+            kept = self._wmats.get(dtype)
+            if kept is None:
+                raise RuntimeError(f"{'/'.join(self.path)}: no kept {dtype} weight matrix; run "
+                                   f"the module once before export")
+            return kept[1]
         w = self.weight
         key = (w.data_ptr(), w.device, w._version)
         kept = self._wmats.get(dtype)

@@ -75,7 +75,14 @@ class _QuantSite(OptionalBuffers):
     def _int8_weight(self):
         """(w operand [out, K padded to K_ALIGN], wscale): the kept matrix of
         the folded weight (made here once where a load brought `wq`), else
-        the weight quantized on this call."""
+        the weight quantized on this call.  Under `torch.export` the folded
+        pair and its matrix must be there already (the program would
+        otherwise quantize the weight at every call, or keep a matrix made
+        from fake parameters)."""
+        if torch.compiler.is_exporting() and (self.wq is None or self.wmat is None):
+            raise RuntimeError(f"{'/'.join(self.path)}: fold the int8 weights "
+                               f"(quant.fold.attach_quant_scales) and run the module once "
+                               f"before export")
         if self.wq is not None:
             if self.wmat is None:
                 self.wmat = int8_weight_matrix(self.wq)

@@ -34,6 +34,8 @@ class Deconv(nn.ConvTranspose2d):
     deterministic one, so that the same batch gives the same detections
     (the evaluator's pipelined loop against its serial loop)."""
 
+    cudnn_deterministic = True  # an exported program sets the flag around its calls
+
     def __init__(self, channels: int):
         super().__init__(channels, channels, 4, stride=2, padding=1, bias=False)
 

@@ -23,6 +23,12 @@ On CUDA every launch is differentiable through `plain_vjp.with_plain_vjp`:
 the backward is the VJP of `qkv_plain` on the saved q, k and v
 (`ops/attention.py:80-119` of the JAX package), for the int8 op too
 (straight-through: the int8 rounding is not differentiated).
+
+Each op is a registered operator, `bevformer_port::flash_attention` and
+`bevformer_port::flash_attention_int8` (q, k, v as [B, len, heads * d] and
+`heads`; the int8 one holds all three of its launches): the CUDA
+implementation launches the kernels and counts the op, the CPU
+implementation is the plain version.
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ import ctypes
 import torch
 
 from . import _cuda
-from .plain_vjp import with_plain_vjp
+from .plain_vjp import register_op, wants_grad, with_plain_vjp
 
 FLASH_HEAD_DIMS = (8, 32, 64)  # micro; tiny/small/base; the wider flash width
 INT8_FLASH_HEAD_DIMS = (32, 64)
@@ -201,9 +207,16 @@ def _launch_flash(query, key, value, out, heads, geo):
     _cuda.check(lib, err, "flash kernel launch")
 
 
+# the registered operator on [B, L, heads * d]
+flash_op = register_op(
+    "flash_attention(Tensor query, Tensor key, Tensor value, int heads) -> Tensor",
+    qkv_heads_plain, lambda q, k, v, heads: _flash_cuda(q, k, v, heads),
+    lambda q, k, v, heads: torch.empty_like(q))
+
+
 def _flash_heads(query, key, value, heads=1):
     """The floating-point kernel on [B, L, heads * d], differentiable."""
-    return with_plain_vjp(lambda q, k, v: _flash_cuda(q, k, v, heads), qkv_heads_plain,
+    return with_plain_vjp(lambda q, k, v: flash_op(q, k, v, heads), qkv_heads_plain,
                           (query, key, value), (heads,))
 
 
@@ -213,7 +226,9 @@ def flash_attention(query, key, value):
         return _flash_heads(query, key, value)
     if query.device.type != "cpu":
         raise ValueError(f"flash_attention: unsupported device {query.device}")
-    return qkv_plain(query, key, value)
+    if wants_grad(query, key, value):
+        return qkv_plain(query, key, value)
+    return flash_op(query, key, value, 1)
 
 
 flash_attention.launches = 0
@@ -363,28 +378,42 @@ def _launch_flash_int8(operands, out, heads, geo):
     _cuda.check(lib, err, "int8 flash kernel launch")
 
 
-def flash_attention_int8(query, key, value, operands=None):
+def flash_attention_int8(query, key, value):
     """int8 flash attention with the contract of `flash_attention`: dynamic
     per-tensor int8 quantization of q, k, v, int8 products, float32 online
-    softmax.  query [B, Lq, d], key/value [B, Lk, d], d in (32, 64).
-    `operands` takes `int8_operands(query, key, value)` made ahead of time
-    (to time the attention kernel apart from the quantization); CUDA only.
-    The kernel's gradient is `qkv_plain`'s (straight-through)."""
+    softmax.  query [B, Lq, d], key/value [B, Lk, d], d in (32, 64).  (To
+    time the attention kernel apart from the quantization,
+    `_flash_int8_cuda(query, key, value, operands)` takes
+    `int8_operands(query, key, value)` made ahead.)  The kernel's gradient
+    is `qkv_plain`'s (straight-through)."""
     if query.is_cuda:
-        return _flash_int8_heads(query.contiguous(), key.contiguous(), value.contiguous(),
-                                 operands=operands)
+        return _flash_int8_heads(query.contiguous(), key.contiguous(), value.contiguous())
     if query.device.type != "cpu":
         raise ValueError(f"flash_attention_int8: unsupported device {query.device}")
-    return flash_attention_int8_plain(query, key, value)
+    if wants_grad(query, key, value):
+        return flash_attention_int8_plain(query, key, value)
+    return flash_int8_op(query, key, value, 1)
 
 
 flash_attention_int8.launches = 0
 
 
-def _flash_int8_heads(query, key, value, heads=1, operands=None):
-    """The int8 op on [B, L, heads * d], differentiable straight through."""
-    return with_plain_vjp(lambda q, k, v: _flash_int8_cuda(q, k, v, operands, heads),
-                          qkv_heads_plain, (query, key, value), (heads,))
+# the registered operator on [B, L, heads * d]: the amax, quantize and
+# attention launches on CUDA
+flash_int8_op = register_op(
+    "flash_attention_int8(Tensor query, Tensor key, Tensor value, int heads) -> Tensor",
+    lambda q, k, v, heads: _split_heads(flash_attention_int8_plain, q, k, v, heads),
+    lambda q, k, v, heads: _flash_int8_cuda(q, k, v, None, heads),
+    lambda q, k, v, heads: torch.empty_like(q))
+
+
+def _flash_int8_heads(query, key, value, heads=1):
+    """The int8 operator on [B, L, heads * d], differentiable straight
+    through."""
+    def launch(q, k, v):
+        return flash_int8_op(q, k, v, heads)
+
+    return with_plain_vjp(launch, qkv_heads_plain, (query, key, value), (heads,))
 
 
 # the wrappers whose kernels take [B, L, heads * d] as it lies (a plain

@@ -44,6 +44,13 @@ JAX TPU path multiplies the int8-table columns in bfloat16).
 `deform_im2col_int8` (the int8 table's im2col kernel) and, for bfloat16,
 `deform_im2col` are the route the op took before the fused kernel: no model
 path calls them there; they stay as its yardstick.
+
+The launches that a model path reaches are registered operators:
+`bevformer_port::deform_im2col` (the float32 route's im2col) and
+`bevformer_port::modulated_deform_conv2d` (the fused kernel, from the map or,
+with `int8`, from its int8 table; the gather table and the kernel are both
+launched inside it).  Their CUDA implementations launch and count, their CPU
+implementations are the plain versions.
 """
 from __future__ import annotations
 
@@ -53,7 +60,7 @@ from typing import Tuple
 import torch
 
 from . import _cuda
-from .plain_vjp import with_plain_vjp
+from .plain_vjp import register_op, wants_grad, with_plain_vjp
 
 LAYOUTS = ("NCHW", "NHWC")
 
@@ -437,16 +444,41 @@ def _launch_im2col(x, table_scale, offset, mask, kernel_size, stride, padding, d
     return col
 
 
+def _im2col_op_fake(x, offset, mask, kernel_size, stride, padding, dilation, deform_groups,
+                    layout):
+    cin = x.shape[3 if layout == "NHWC" else 1]
+    ho, wo = offset.shape[1:3] if layout == "NHWC" else offset.shape[2:]
+    return offset.new_empty((x.shape[0], kernel_size[0] * kernel_size[1] * cin, ho * wo))
+
+
+# the registered operator: CPU `deform_im2col_plain`, CUDA the kernel
+im2col_op = register_op(
+    "deform_im2col(Tensor x, Tensor offset, Tensor mask, int[] kernel_size, int stride, "
+    "int padding, int dilation, int deform_groups, str layout) -> Tensor",
+    lambda x, o, m, ks, *static: deform_im2col_plain(x, o, m, tuple(ks), *static),
+    lambda x, o, m, ks, *static: _launch_im2col(x, None, o, m, tuple(ks), *static),
+    _im2col_op_fake)
+
+
 def deform_im2col(x, offset, mask, kernel_size: Tuple[int, int], stride=1, padding=1,
                   dilation=1, deform_groups=1, layout="NCHW"):
-    """The deformable im2col on the card: launches the kernel of
+    """The deformable im2col: on the card it launches the kernel of
     `csrc/dcn.cu` and returns the column matrix [N, kh*kw*Cin, Ho*Wo] in
     x.dtype.  x, offset and mask are contiguous CUDA tensors of one dtype
     (float32 or bfloat16) in `layout`; the kernel reads either layout through
-    strides, so no input is copied."""
+    strides, so no input is copied.  CPU tensors run `deform_im2col_plain`."""
     static = (tuple(kernel_size), stride, padding, dilation, deform_groups, layout)
-    return with_plain_vjp(lambda x, o, m: _launch_im2col(x, None, o, m, *static),
-                          deform_im2col_plain, (x, offset, mask), static)
+
+    def launch(x, offset, mask):
+        return im2col_op(x, offset, mask, list(kernel_size), *static[1:])
+
+    if x.is_cuda:
+        return with_plain_vjp(launch, deform_im2col_plain, (x, offset, mask), static)
+    if x.device.type != "cpu":
+        raise ValueError(f"dcn: unsupported device {x.device}")
+    if wants_grad(x, offset, mask):
+        return deform_im2col_plain(x, offset, mask, *static)
+    return launch(x, offset, mask)
 
 
 deform_im2col.launches = 0
@@ -583,13 +615,44 @@ def _dcn_cuda(x, offset, mask, weight, bias, stride, padding, dilation, groups, 
         raise ValueError("dcn kernel: a float32 map takes the im2col route")
 
     def launch(x, offset, mask, weight, bias):
-        out, run = fused_launcher(x, offset, mask, weight, bias, stride, padding, dilation,
-                                  groups, dg, layout, int8_table, wmat)
-        run()
-        return out
+        return dcn_op(x, offset, mask, weight, bias, wmat, stride, padding, dilation, groups, dg,
+                      layout, bool(int8_table))
 
     return with_plain_vjp(launch, _plain_float32, (x, offset, mask, weight, bias),
                           (stride, padding, dilation, groups, dg, layout))
+
+
+def _dcn_op_cpu(x, offset, mask, weight, bias, wmat, stride, padding, dilation, groups,
+                deform_groups, layout, int8):
+    return modulated_deform_conv2d_plain(x, offset, mask, weight, bias, stride, padding,
+                                         dilation, groups, deform_groups, layout,
+                                         quant="int8" if int8 else False)
+
+
+def _dcn_op_cuda(x, offset, mask, weight, bias, wmat, stride, padding, dilation, groups,
+                 deform_groups, layout, int8):
+    out, run = fused_launcher(x, offset, mask, weight, bias, stride, padding, dilation, groups,
+                              deform_groups, layout, int8, wmat)
+    run()
+    return out
+
+
+def _dcn_op_fake(x, offset, mask, weight, bias, wmat, stride, padding, dilation, groups,
+                 deform_groups, layout, int8):
+    N, Cout = x.shape[0], weight.shape[0]
+    if layout == "NHWC":
+        return x.new_empty((N, offset.shape[1], offset.shape[2], Cout))
+    return x.new_empty((N, Cout, offset.shape[2], offset.shape[3]))
+
+
+# the registered operator: on CUDA the gather table and the fused kernel
+# (`wmat` the kept weight matrix, made per call where None), from the int8
+# table with `int8`; on the CPU the plain op (`wmat` not read)
+dcn_op = register_op(
+    "modulated_deform_conv2d(Tensor x, Tensor offset, Tensor mask, Tensor weight, Tensor? bias, "
+    "Tensor? wmat, int stride, int padding, int dilation, int groups, int deform_groups, "
+    "str layout, bool int8) -> Tensor",
+    _dcn_op_cpu, _dcn_op_cuda, _dcn_op_fake)
 
 
 def _plain_float32(x, offset, mask, weight, bias, *static):
@@ -751,8 +814,11 @@ def modulated_deform_conv2d(x, offset, mask, weight, bias=None, stride=1, paddin
                          deform_groups, layout, False, wmat)
     if x.device.type != "cpu":
         raise ValueError(f"dcn: unsupported device {x.device}")
-    return modulated_deform_conv2d_plain(x, offset, mask, weight, bias, stride, padding,
-                                         dilation, groups, deform_groups, layout)
+    if wants_grad(x, offset, mask, weight, bias):
+        return modulated_deform_conv2d_plain(x, offset, mask, weight, bias, stride, padding,
+                                             dilation, groups, deform_groups, layout)
+    return dcn_op(x, offset, mask, weight, bias, None, stride, padding, dilation, groups,
+                  deform_groups, layout, False)
 
 
 modulated_deform_conv2d.launches = 0
@@ -790,8 +856,11 @@ def modulated_deform_conv2d_int8(x, offset, mask, weight, bias=None, stride=1, p
                          deform_groups, layout, True, wmat)
     if x.device.type != "cpu":
         raise ValueError(f"dcn: unsupported device {x.device}")
-    return modulated_deform_conv2d_int8_plain(x, offset, mask, weight, bias, stride, padding,
-                                              dilation, groups, deform_groups, layout)
+    if wants_grad(x, offset, mask, weight, bias):
+        return modulated_deform_conv2d_int8_plain(x, offset, mask, weight, bias, stride, padding,
+                                                  dilation, groups, deform_groups, layout)
+    return dcn_op(x, offset, mask, weight, bias, None, stride, padding, dilation, groups,
+                  deform_groups, layout, True)
 
 
 modulated_deform_conv2d_int8.launches = 0

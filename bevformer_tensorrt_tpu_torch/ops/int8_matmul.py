@@ -15,6 +15,10 @@ tensor maps whose arguments `tensor_map_args` states and checks.
 The product has no gradient (nor has the JAX package's): with grad mode on,
 an input that requires grad makes the call raise on every device, rather
 than return a result cut off from the graph.
+
+The product is the registered operator `bevformer_port::int8_matmul`: its
+CUDA implementation launches the kernel and counts the launch, its CPU
+implementation is the plain version.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
+from .plain_vjp import register_op, wants_grad
 
 K_ALIGN = 16  # a TMA row stride is a multiple of 16 bytes
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -150,15 +155,22 @@ def int8_matmul(x, w, x_scale, w_scale, out_dtype=torch.float32):
     Returns:
       [M, N] in `out_dtype`: int32-exact sums times `x_scale * w_scale[n]`.
     """
-    if torch.is_grad_enabled() and any(
-            torch.is_tensor(t) and t.requires_grad for t in (x, w, x_scale, w_scale)):
+    if wants_grad(x, w, x_scale, w_scale):
         raise RuntimeError("int8_matmul has no gradient: an input requires grad (run the int8 "
                            "tier under torch.no_grad(), or train through the QDQ tier)")
-    if x.is_cuda:
-        return _int8_matmul_cuda(x, w, x_scale, w_scale, out_dtype)
-    if x.device.type != "cpu":
+    if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"int8_matmul: unsupported device {x.device}")
-    return int8_matmul_plain(x, w, x_scale, w_scale, out_dtype)
+    x_scale = torch.as_tensor(x_scale, dtype=torch.float32, device=x.device)
+    return int8_matmul_op(x, w, x_scale, w_scale, out_dtype)
 
 
 int8_matmul.launches = 0
+
+
+# the registered operator: CPU `int8_matmul_plain`, CUDA the kernel
+int8_matmul_op = register_op(
+    "int8_matmul(Tensor x, Tensor w, Tensor x_scale, Tensor w_scale, ScalarType out_dtype) "
+    "-> Tensor",
+    int8_matmul_plain, _int8_matmul_cuda,
+    lambda x, w, x_scale, w_scale, out_dtype: x.new_empty((x.shape[0], w.shape[0]),
+                                                          dtype=out_dtype))

@@ -20,16 +20,20 @@ the floating-point op on the dequantized value, which is what its plain
 version computes.  The JAX kernel also rounds its combined weights to
 bfloat16, which the port does not: the two differ by up to 2^-8 of a weight.
 Its gradient is the floating-point plain version's (straight-through).
+
+Both ops are the registered operator `bevformer_port::msda` (its `int8`
+flag picks the table): the CUDA implementation launches the kernel and
+counts the launch, the CPU implementation is the plain version.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from . import _cuda
-from .plain_vjp import with_plain_vjp
+from .plain_vjp import register_op, wants_grad, with_plain_vjp
 
 Shapes = Tuple[Tuple[int, int], ...]
 
@@ -276,13 +280,51 @@ def _msda_cuda(value, reference_points, sampling_offsets, attention_weights,
     return out
 
 
+def _flat(spatial_shapes: Shapes) -> List[int]:
+    return [int(n) for hw in spatial_shapes for n in hw]
+
+
+def _pairs(flat: Sequence[int]) -> Shapes:
+    return tuple(zip(flat[0::2], flat[1::2]))
+
+
+def _msda_op_cpu(value, reference_points, sampling_offsets, attention_weights, spatial_shapes,
+                 int8):
+    plain = multi_scale_deformable_attn_int8_plain if int8 else multi_scale_deformable_attn_plain
+    return plain(value, reference_points, sampling_offsets, attention_weights,
+                 _pairs(spatial_shapes))
+
+
+def _msda_op_cuda(value, reference_points, sampling_offsets, attention_weights,
+                  spatial_shapes, int8):
+    return _msda_cuda(value, reference_points, sampling_offsets, attention_weights,
+                      _pairs(spatial_shapes), int8_table=True if int8 else None)
+
+
+def _msda_op_fake(value, reference_points, sampling_offsets, attention_weights,
+                  spatial_shapes, int8):
+    return value.new_empty((value.shape[0], reference_points.shape[1],
+                            value.shape[2] * value.shape[3]))
+
+
+# the registered operator: `spatial_shapes` flattened (h0, w0, h1, ...),
+# `int8` the int8 value table
+msda_op = register_op(
+    "msda(Tensor value, Tensor reference_points, Tensor sampling_offsets, "
+    "Tensor attention_weights, int[] spatial_shapes, bool int8) -> Tensor",
+    _msda_op_cpu, _msda_op_cuda, _msda_op_fake)
+
+
 def _msda_kernel(value, reference_points, sampling_offsets, attention_weights,
-                 spatial_shapes: Shapes, int8_table):
-    """The kernel launch, differentiable through the float plain version."""
-    return with_plain_vjp(
-        lambda *t: _msda_cuda(*t, spatial_shapes, int8_table=int8_table),
-        multi_scale_deformable_attn_plain,
-        (value, reference_points, sampling_offsets, attention_weights), (spatial_shapes,))
+                 spatial_shapes: Shapes, int8: bool):
+    """The operator's launch, differentiable through the float plain
+    version; `int8` picks the int8 value table."""
+    def launch(*tensors):
+        return msda_op(*tensors, _flat(spatial_shapes), int8)
+
+    return with_plain_vjp(launch, multi_scale_deformable_attn_plain,
+                          (value, reference_points, sampling_offsets, attention_weights),
+                          (spatial_shapes,))
 
 
 def multi_scale_deformable_attn(value, reference_points, sampling_offsets,
@@ -301,31 +343,37 @@ def multi_scale_deformable_attn(value, reference_points, sampling_offsets,
     """
     if value.is_cuda:
         return _msda_kernel(value, reference_points, sampling_offsets, attention_weights,
-                            tuple(spatial_shapes), None)
+                            tuple(spatial_shapes), False)
     if value.device.type != "cpu":
         raise ValueError(f"msda: unsupported device {value.device}")
-    return multi_scale_deformable_attn_plain(value, reference_points, sampling_offsets,
-                                             attention_weights, spatial_shapes)
+    if wants_grad(value, reference_points, sampling_offsets, attention_weights):
+        return multi_scale_deformable_attn_plain(value, reference_points, sampling_offsets,
+                                                 attention_weights, spatial_shapes)
+    return msda_op(value, reference_points, sampling_offsets, attention_weights,
+                   _flat(spatial_shapes), False)
 
 
 multi_scale_deformable_attn.launches = 0
 
 
 def multi_scale_deformable_attn_int8(value, reference_points, sampling_offsets,
-                                     attention_weights, spatial_shapes: Shapes, table=None):
+                                     attention_weights, spatial_shapes: Shapes):
     """`multi_scale_deformable_attn` from an int8 value table: the value
     (float32 or bfloat16, same arguments) is quantized per (batch, head)
-    here, and the kernel gathers the int8 rows.  `table` takes the
-    (int8, scale) pair of `quantize_value_table(value)` made ahead of time
-    (to time the kernel apart from the quantization); CUDA only.  The
-    kernel's gradient is the floating-point op's (straight-through)."""
+    here, and the kernel gathers the int8 rows.  (To time the kernel apart
+    from the quantization, `_msda_cuda(..., int8_table=(q, scale))` takes a
+    table made ahead by `quantize_value_table`.)  The kernel's gradient is
+    the floating-point op's (straight-through)."""
     if value.is_cuda:
         return _msda_kernel(value, reference_points, sampling_offsets, attention_weights,
-                            tuple(spatial_shapes), True if table is None else table)
+                            tuple(spatial_shapes), True)
     if value.device.type != "cpu":
         raise ValueError(f"msda: unsupported device {value.device}")
-    return multi_scale_deformable_attn_int8_plain(value, reference_points, sampling_offsets,
-                                                  attention_weights, spatial_shapes)
+    if wants_grad(value, reference_points, sampling_offsets, attention_weights):
+        return multi_scale_deformable_attn_int8_plain(value, reference_points, sampling_offsets,
+                                                      attention_weights, spatial_shapes)
+    return msda_op(value, reference_points, sampling_offsets, attention_weights,
+                   _flat(spatial_shapes), True)
 
 
 multi_scale_deformable_attn_int8.launches = 0

@@ -48,6 +48,22 @@ def rig_ranks(cfg: BEVDetConfig, info: dict, ranks_pad: Optional[int] = 400000,
                                  else None)
 
 
+class RigModel(torch.nn.Module):
+    """BEVDet with one rig's pooling ranks held as buffers: `forward(image)`
+    is the detector on them.  The exported program's only input is then the
+    image, as the reference bakes the ranks into its engine."""
+
+    def __init__(self, model: BEVDet, rank_args: Sequence[torch.Tensor]):
+        super().__init__()
+        self.model = model
+        self.names = tuple(f"rank{i}" for i in range(len(rank_args)))
+        for name, t in zip(self.names, rank_args):
+            self.register_buffer(name, t)
+
+    def forward(self, image) -> Dict[str, torch.Tensor]:
+        return self.model(image, *(getattr(self, n) for n in self.names))
+
+
 class BEVDetEngine:
     """Per-frame BEVDet inference on one rig.  `model` defaults to a
     `BEVDet(cfg)` with seeded weights; `state_dict` (from

@@ -38,6 +38,20 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def place_model(cfg: BEVFormerConfig, model: Optional[BEVFormer], state_dict, device,
+                seed: int) -> BEVFormer:
+    """The engines' model on `device` in eval mode: `model`, or a
+    `BEVFormer(cfg)` with seeded weights (`init_weights` from `seed`);
+    `state_dict` is loaded strictly when given."""
+    if model is None:
+        model = BEVFormer(cfg)
+        if state_dict is None:
+            init_weights(model, torch.Generator().manual_seed(seed))
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    return model.to(device).eval()
+
+
 class TemporalState:
     """prev_bev / prev_pos / prev_angle / scene_token carrier."""
 
@@ -115,13 +129,7 @@ class BEVFormerEngine:
                  state_dict=None, device=None, seed: int = 0):
         self.device = resolve_device(device)
         self.cfg = cfg
-        if model is None:
-            model = BEVFormer(cfg)
-            if state_dict is None:
-                init_weights(model, torch.Generator().manual_seed(seed))
-        if state_dict is not None:
-            model.load_state_dict(state_dict, strict=True)
-        self.model = model.to(self.device).eval()
+        self.model = place_model(cfg, model, state_dict, self.device, seed)
         self._cam_budget_warned = False
         self.state = TemporalState()
 

@@ -58,3 +58,26 @@ def bevdet_rig(num_cams: int, img_h: int, img_w: int, rng, focal: float = 0.5):
         intr.append(np.array([[img_w * focal, 0, img_w / 2], [0, img_w * focal, img_h / 2],
                               [0, 0, 1]]))
     return np.stack(s2e).astype(np.float32), np.stack(intr).astype(np.float32)
+
+
+def nuscenes_like_rig(img_w: int = 1600, img_h: int = 900) -> np.ndarray:
+    """Six lidar2img matrices [6, 4, 4] (float64) in the nuScenes camera
+    layout: front, front-left, front-right (focal 1266), back (809, the wider
+    view), back-left, back-right, each 1.5 m above the lidar origin.  The
+    JAX package's serving bench takes its rig from the same construction
+    (`tools/geometry_analysis.py::nuscenes_like_rig`)."""
+    rigs = []
+    for yaw_deg, f in ((0.0, 1266.0), (55.0, 1266.0), (-55.0, 1266.0), (180.0, 809.0),
+                       (110.0, 1266.0), (-110.0, 1266.0)):
+        yaw = np.deg2rad(yaw_deg)
+        # lidar: x forward, y left, z up; camera: z forward, x right, y down
+        fwd = np.array([np.cos(yaw), np.sin(yaw), 0.0])
+        right = np.array([np.sin(yaw), -np.cos(yaw), 0.0])
+        down = np.array([0.0, 0.0, -1.0])
+        R = np.stack([right, down, fwd])  # rows: the camera's axes in lidar coordinates
+        K = np.array([[f, 0, img_w / 2, 0], [0, f, img_h / 2, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+        Rt = np.eye(4)
+        Rt[:3, :3] = R
+        Rt[:3, 3] = -R @ np.array([0.0, 0.0, 1.5])
+        rigs.append(K @ Rt)
+    return np.stack(rigs)

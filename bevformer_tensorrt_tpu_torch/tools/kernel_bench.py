@@ -3,7 +3,8 @@ production kernel at the models' shapes beside its bound, and what share of
 the MSDA kernel's time is the gather.
 
     python -m bevformer_tensorrt_tpu_torch.tools.kernel_bench [--span N ...]
-        [--shapes sca_base sca_tiny] [--parts probes production split dcn_split flash]
+        [--shapes sca_base sca_tiny]
+        [--parts probes production split dcn_split flash dispatch]
         [--build-report] [--out FILE] [--device cuda]
 
 It takes the place of the JAX package's TPU design-space probes
@@ -46,6 +47,19 @@ counterpart on a GPU; what is left is
               kernel at 1, 2 and 4 row groups a block (the geometry rule
               picks one); the device kernels one call launches
               (torch.profiler).
+  dispatch    (asked for by name; CUDA only) the host's cost of a call at
+              each registered operator on a model path, at tiny's shapes (the
+              DCN at base's stage 3): the launch function alone (checks,
+              ctypes launch), the operator (`torch.ops.bevformer_port.*`: the
+              dispatcher, then the same function) and the model's wrapper
+              (the autograd Function around the operator), each as host us a
+              call of 20 calls issued behind a device sleep (the card never
+              makes the host wait) and as us a call of a loop that
+              synchronises after every call, the layers timed in turn over
+              15 rounds (median and least); then, per tiny and base frame
+              (float and int8), the calls it makes and the ms the operators
+              add to its host time (sum over calls of the medians' operator
+              - launch).
   --build-report  compiles each source again on its own and prints nvcc's
               time and ptxas' registers and spills.
 
@@ -76,7 +90,7 @@ from ..ops import msda as msda_ops
 from ..runtime.engine import resolve_device
 from . import kernel_cases as kc
 
-PARTS = ("probes", "production", "split", "dcn_split", "flash")
+PARTS = ("probes", "production", "split", "dcn_split", "flash", "dispatch")
 DEFAULT_PARTS = PARTS[:3]
 DCN_KINDS = {  # operand kind: (activation dtype, int8 table)
     "bf16": (torch.bfloat16, False), "int8": (torch.float32, True),
@@ -161,8 +175,7 @@ def run_production(bench, shapes):
                 table = msda_ops.quantize_value_table(value)
                 _, alone = kc.msda_int8_work(value, ref, off, attn, lv)
                 bench.emit("production", "msda_int8", name, bench.ms(
-                    lambda: ops.multi_scale_deformable_attn_int8(value, ref, off, attn, lv,
-                                                                 table=table)),
+                    lambda: msda_ops._msda_cuda(value, ref, off, attn, lv, int8_table=table)),
                     (*alone, dtype), dtype, note="kernel alone, table quantized ahead")
             else:
                 bench.emit("production", "msda_int8", name, bench.ms(
@@ -179,7 +192,7 @@ def run_production(bench, shapes):
             operands = attn_ops.int8_operands(q, k, v) if bench.cuda else None
             _, (nbytes, ops8, exps) = kc.flash_int8_work(q, k, v)
             bench.emit("production", "flash_int8", name, bench.ms(
-                lambda: (ops.flash_attention_int8(q, k, v, operands) if bench.cuda
+                lambda: (attn_ops._flash_int8_cuda(q, k, v, operands) if bench.cuda
                          else ops.flash_attention_int8(q, k, v))),
                 (nbytes, ops8, torch.int8, exps), dtype,
                 **({"note": "kernel alone, operands quantized ahead"} if bench.cuda else {}))
@@ -291,7 +304,7 @@ def run_flash(bench, shapes):
                         operands, out, 1, attn_ops.flash_launch_geometry(
                             B, Lq, Lk, d, "int8", warps=w)))
                         for w in attn_ops.WARP_CHOICES},
-                    kernel_ms=bench.ms(lambda: ops.flash_attention_int8(q, k, v, operands)),
+                    kernel_ms=bench.ms(lambda: attn_ops._flash_int8_cuda(q, k, v, operands)),
                     kernel_bound_ms=kc.bound(alone[0], alone[1], torch.int8, alone[2])[0],
                     quantize_ms=bench.ms(lambda: attn_ops.flash_int8_quantize(qh, kh, vh, B)),
                     heads_ms=bench.ms(lambda: ops.multi_head_attention(qh, kh, vh, B, int8=True)),
@@ -393,6 +406,98 @@ def run_dcn_split(bench, shapes, kinds):
             torch.cuda.empty_cache()
 
 
+# the operators' calls a frame makes (chip_smoke.py's launch counts; the DCN
+# op is one call for its gather table and fused kernel)
+DISPATCH_FRAMES = {
+    "tiny bfloat16": dict(msda=12, flash=6),
+    "tiny int8": dict(msda=3, msda_int8=9, flash_int8=6, int8_gemm=202),
+    "base bfloat16": dict(msda=18, flash=6, dcn=26),
+    "base int8": dict(msda=6, msda_int8=12, flash_int8=6, int8_gemm=288, dcn_int8=26),
+}
+
+
+def layer_us(fns, synced, n=20, rounds=15):
+    """{layer: [us a call of each round]}: each round times `n` calls of
+    every layer in turn, the first layer rotating.  Issued (`synced`
+    False): host time of the calls made while the card sleeps (~40 ms,
+    past the calls' launches; none waits for it).  Synced: every call
+    followed by a synchronise."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    names, out = list(fns), {k: [] for k in fns}
+    for r in range(rounds):
+        for k in names[r % len(names):] + names[:r % len(names)]:
+            if not synced:
+                torch.cuda._sleep(4 * kc.SLEEP_CYCLES)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fns[k]()
+                if synced:
+                    torch.cuda.synchronize()
+            out[k].append((time.perf_counter() - t0) * 1e6 / n)
+            torch.cuda.synchronize()
+    return out
+
+
+def dispatch_cases(bench):
+    """{name: (shape, launch function, operator, wrapper)}, float32 inputs."""
+    dev, gen, f32 = bench.dev, bench.gen, torch.float32
+    cases = {}
+    spec = kc.MSDA_SHAPES["sca"]
+    (v, r, o, a), lv = kc.msda_inputs(spec, f32, gen, dev)
+    flat = msda_ops._flat(lv)
+    for name, int8 in (("msda", False), ("msda_int8", True)):
+        wrapper = (msda_ops.multi_scale_deformable_attn_int8 if int8
+                   else msda_ops.multi_scale_deformable_attn)
+        cases[name] = ("sca tiny", lambda int8=int8: msda_ops._msda_cuda(
+            v, r, o, a, lv, int8_table=True if int8 else None),
+            lambda int8=int8: msda_ops.msda_op(v, r, o, a, flat, int8),
+            lambda wrapper=wrapper: wrapper(v, r, o, a, lv))
+    q, k, vv = kc.flash_inputs(kc.FLASH_SHAPES["decoder"], f32, gen, dev)
+    cases["flash"] = ("decoder", lambda: attn_ops._flash_cuda(q, k, vv, 1),
+                      lambda: attn_ops.flash_op(q, k, vv, 1),
+                      lambda: ops.flash_attention(q, k, vv))
+    cases["flash_int8"] = ("decoder", lambda: attn_ops._flash_int8_cuda(q, k, vv, None, 1),
+                           lambda: attn_ops.flash_int8_op(q, k, vv, 1),
+                           lambda: ops.flash_attention_int8(q, k, vv))
+    x, w, xs, ws = kc.gemm_case(*kc.GEMM_SHAPES["dense_decoder"], gen, dev)
+    cases["int8_gemm"] = ("dense_decoder", lambda: int8_ops._int8_matmul_cuda(x, w, xs, ws, f32),
+                          lambda: int8_ops.int8_matmul_op(x, w, xs, ws, f32),
+                          lambda: int8_ops.int8_matmul(x, w, xs, ws))
+    for name, dtype, int8 in (("dcn", torch.bfloat16, False), ("dcn_int8", f32, True)):
+        xd, off, mask, weight, _ = kc.dcn_inputs(kc.DCN_SHAPES["base_s3"], dtype, gen, dev)
+        wmat = dcn_ops.dcn_weight_matrix(weight, dtype)
+        args = (xd, off, mask, weight, None, wmat, 1, 1, 1, 1, 1, "NCHW", int8)
+        cases[name] = ("base_s3", lambda args=args: dcn_ops._dcn_op_cuda(*args),
+                       lambda args=args: dcn_ops.dcn_op(*args),
+                       lambda args=args: dcn_ops._dcn_cuda(*args[:5], *args[6:], wmat=args[5]))
+    return cases
+
+
+def run_dispatch(bench):
+    """The host's cost of a call at each layer of each registered operator
+    (median and least of the rounds), then what the operators add to a
+    frame's host time (by the medians)."""
+    added = {}
+    for name, (shape, launch, op, wrapper) in dispatch_cases(bench).items():
+        fns = dict(launch=launch, operator=op, wrapper=wrapper)
+        row = {}
+        for mode in ("issue", "synced"):
+            runs = layer_us(fns, mode == "synced")
+            for k, t in runs.items():
+                row[f"{k}_{mode}_us"], row[f"{k}_{mode}_min_us"] = float(np.median(t)), min(t)
+            row[f"operator_added_{mode}_us"] = row[f"operator_{mode}_us"] - row[f"launch_{mode}_us"]
+            row[f"operator_added_{mode}_min_us"] = (row[f"operator_{mode}_min_us"]
+                                                    - row[f"launch_{mode}_min_us"])
+        added[name] = row["operator_added_issue_us"]
+        bench.emit("dispatch", name, shape, None, None, torch.float32, **row)
+    for frame, calls in DISPATCH_FRAMES.items():
+        bench.emit("dispatch", "frame", frame, None, calls=calls,
+                   calls_per_frame=sum(calls.values()),
+                   operator_added_ms=sum(n * added[k] for k, n in calls.items()) / 1e3)
+
+
 def build_report():
     """Each source compiled again on its own: seconds of nvcc, and ptxas'
     registers and spills per kernel."""
@@ -440,6 +545,8 @@ def main(argv=None):
     else:
         if args.build_report:
             raise SystemExit("kernel_bench: --build-report needs nvcc and a CUDA device")
+        if "dispatch" in args.parts:
+            raise SystemExit("kernel_bench: the dispatch part times CUDA launches")
         card = "cpu (rehearsal at toy shapes: plain versions, host times)"
         probe_shapes = kc.TOY_SHAPES["probe"]
         production = {k: kc.TOY_SHAPES[k] for k in ("msda", "flash", "dcn", "gemm")}
@@ -459,6 +566,8 @@ def main(argv=None):
             run_dcn_split(bench, dcn_split, args.dcn_kinds)
         if "flash" in args.parts:
             run_flash(bench, production["flash"])
+        if "dispatch" in args.parts:
+            run_dispatch(bench)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(dict(card=card, rows=rows, build=report), fh, indent=1)

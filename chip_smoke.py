@@ -157,7 +157,26 @@ Phases (any failure exits non-zero before the result lines):
      loop's, the batch latency and the eval loop's ms an image, peak memory;
      the int8 product timed at every shape a batch launched, the DCN at
      CenterNet's three neck shapes.
- 18. One JSON line of per-kernel numbers, the nvidia-smi line of the card,
+ 18. Serving (`runtime/serving.py::ContinuousBatchingEngine`) at full
+     width: tiny in float32 and bfloat16 with 4 slots at batch 4 over 6
+     scenes x 3 frames (slots evicted by `finish_scene`, reused, lanes
+     padded), base bfloat16 at batch 2 over 2 scenes x 3 frames; every
+     lane's classes and coords and every scene's pool slot against
+     `BEVFormerEngine` on the same frames at the tiny phase's bars (float32
+     max 1e-4, bfloat16 rms 5e-2); each step's launches exact (tiny 12 x B
+     MSDA and 6 x B flash; base 18 x B and 6 x B, and 26 fused DCN and 26
+     tables, the backbone running once a step over B x 6 images);
+     `tools/serving_bench.py`'s `bench`: serving against sequential
+     frames/s.
+ 19. Export: tiny float32, tiny int8 (phase 12's `tools/calibrate.py`
+     scales), base bfloat16, YOLOX-x and CenterNet-R18 float32 at batch 8,
+     BEVDet-R50 bfloat16 on the generated set's rig through their export
+     CLIs (seconds, MB), the module each CLI built run eagerly on real
+     inputs before it exports, each artifact reloaded in one fresh
+     interpreter that imports the port alone and run on the card: outputs
+     bit for bit the eager module's, each kernel launched as often as in
+     the eager forward, CenterNet's two runs bit for bit.
+ 20. One JSON line of per-kernel numbers, the nvidia-smi line of the card,
      and the final `{"ok": true, "device": ...}` line.
 Ahead of phase 10, three phases of their own:
   a. The DCN op from the int8 table (the fused kernel, float32 and
@@ -235,6 +254,7 @@ from bevformer_tensorrt_tpu_torch.quant.qdq import QDQ
 from bevformer_tensorrt_tpu_torch.runtime import det2d_engine
 from bevformer_tensorrt_tpu_torch.runtime.bevdet_engine import BEVDetEngine, rig_ranks
 from bevformer_tensorrt_tpu_torch.runtime.engine import BEVFormerEngine
+from bevformer_tensorrt_tpu_torch.runtime.serving import ContinuousBatchingEngine, FrameRequest
 from bevformer_tensorrt_tpu_torch.runtime.synthetic import synthetic_frames
 from bevformer_tensorrt_tpu_torch.ops import gather_probe as probe_ops
 from bevformer_tensorrt_tpu_torch.runtime.torch_import import (
@@ -246,7 +266,10 @@ from bevformer_tensorrt_tpu_torch.runtime.torch_import import (
     yolox_upstream_layout,
 )
 from bevformer_tensorrt_tpu_torch.native import normalize_pad_chw_native
-from bevformer_tensorrt_tpu_torch.tools import calibrate, evaluate, kernel_bench
+from bevformer_tensorrt_tpu_torch.tools import calibrate, evaluate, kernel_bench, serving_bench
+from bevformer_tensorrt_tpu_torch.tools import export as export_cli
+from bevformer_tensorrt_tpu_torch.tools.bevdet import export as bevdet_export
+from bevformer_tensorrt_tpu_torch.tools.det2d import export as det2d_export
 from bevformer_tensorrt_tpu_torch.tools import train as train_cli
 from bevformer_tensorrt_tpu_torch.tools.bevdet import calibrate as bevdet_calibrate
 from bevformer_tensorrt_tpu_torch.tools.bevdet import evaluate as bevdet_evaluate
@@ -614,7 +637,8 @@ def phase_msda_int8(dev, gen):
             kb_ms, kb_by = bound(*alone, dtype)
             table = msda_ops.quantize_value_table(value)
             ms = device_ms(lambda: op(value, ref, off, attn, shapes))
-            kernel_ms = device_ms(lambda: op(value, ref, off, attn, shapes, table=table))
+            kernel_ms = device_ms(
+                lambda: msda_ops._msda_cuda(value, ref, off, attn, shapes, int8_table=table))
             float_ms = device_ms(
                 lambda: msda_ops.multi_scale_deformable_attn(value, ref, off, attn, shapes))
             plain_ms = device_ms(lambda: msda_ops.multi_scale_deformable_attn_int8_plain(
@@ -641,7 +665,7 @@ def phase_flash_int8(dev, gen):
     requantization blocks), [B, L, d] and, at the decoder shape, the heads
     where they lie; its amax and quantize launches' codes and scales bit for
     bit `int8_operands`'.  `ms` is the whole op (three launches), `kernel_ms`
-    the attention kernel alone on operands quantized ahead (`operands=`),
+    the attention kernel alone on operands quantized ahead (`_flash_int8_cuda`),
     `quantize_ms` the amax and quantize launches alone; the device kernels
     one decoder call launches are counted with torch.profiler (at most
     three)."""
@@ -668,7 +692,7 @@ def phase_flash_int8(dev, gen):
             b_ms, b_by = bound(whole[0], whole[1], torch.int8, whole[2])
             kb_ms, kb_by = bound(alone[0], alone[1], torch.int8, alone[2])
             ms = device_ms(lambda: attn_ops.flash_attention_int8(q, k, v))
-            kernel_ms = device_ms(lambda: attn_ops.flash_attention_int8(q, k, v, operands))
+            kernel_ms = device_ms(lambda: attn_ops._flash_int8_cuda(q, k, v, operands))
             quantize_ms = device_ms(lambda: attn_ops.flash_int8_quantize(q, k, v))
             float_ms = device_ms(lambda: attn_ops.flash_attention(q, k, v))
             plain_ms = device_ms(lambda: attn_ops.flash_attention_int8_plain(q, k, v), n=5)
@@ -964,6 +988,10 @@ def phase_checkpoint(card):
 
 COUNT_NAMES = ("msda", "flash_attn", "dcn", "int8_gemm", "msda_int8", "flash_int8", "dcn_int8",
                "dcn_table", "gather_rows", "gather_blend", "dcn_im2col", "dcn_im2col_int8")
+
+
+# the kernels line's names that differ from their launch counter's
+ENTRY_COUNTERS = {"dcn_fused": "dcn", "dcn_fused_int8": "dcn_int8", "dcn_gather_table": "dcn_table"}
 
 
 def launch_counts():
@@ -2712,6 +2740,357 @@ def phase_det2d(card, dev, gen, work, models=("yolox_x", "centernet_r18"), size=
     return res
 
 
+SERVING_SCENES = 6  # tiny: 6 scenes x 3 frames over 4 slots, batch 4
+SERVING_FRAMES = 3
+
+
+def serving_stream(cfg, scenes, frames, seed=0):
+    """{(scene, t): infer_frame keywords}: each scene's synthetic frames on
+    a rig of its own, drifting ego motion, a new image every frame."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for s in range(scenes):
+        for t, f in enumerate(synthetic_frames(cfg, rng, [f"scene-{s}"] * frames)):
+            out[(s, t)] = f
+    return out
+
+
+def serve_counted(engine, stream, scenes, frames, finish_first=()):
+    """Submit the stream interleaved, drain, finish `finish_first`, drain
+    again.  Returns ({(scene, t): (classes, coords)}, [per step: launch
+    counts, backbone calls, backbone images], {scene: its slot's prev_bev
+    after its last frame})."""
+    steps, calls = [], []
+    hook = engine.model.img_backbone.register_forward_hook(
+        lambda m, i, o: calls.append(i[0].shape[0]))
+    step = engine.step
+
+    def counted():
+        reset_launch_counts()
+        del calls[:]
+        got = step()
+        if got:
+            torch.cuda.synchronize()
+            steps.append(dict(launches=launch_counts(), backbone_calls=len(calls),
+                              backbone_images=list(calls), lanes=len(got)))
+        return got
+
+    engine.step = counted
+    slots = {}
+
+    def keep_slots(done):
+        for s in done:
+            slots[s] = engine.pool[engine.scenes[s].slot].clone()
+
+    try:
+        for t in range(frames):
+            for s in range(scenes):
+                engine.submit(FrameRequest(scene_id=s, tag=(s, t), **stream[(s, t)]))
+        got = {tag: (torch.from_numpy(c), torch.from_numpy(b)) for tag, c, b in engine.drain()}
+        keep_slots([s for s in range(scenes) if s in engine.scenes and (s, frames - 1) in got])
+        for s in finish_first:
+            engine.finish_scene(s)
+        got.update({tag: (torch.from_numpy(c), torch.from_numpy(b))
+                    for tag, c, b in engine.drain()})
+        keep_slots([s for s in range(scenes) if s not in slots])
+        for s in range(scenes):
+            engine.finish_scene(s)
+    finally:
+        engine.step = step
+        hook.remove()
+    if set(got) != {(s, t) for s in range(scenes) for t in range(frames)}:
+        raise AssertionError(f"served {sorted(got)}")
+    return got, steps, slots
+
+
+def serving_run(card, cfg, max_scenes, batch, scenes, frames, per_step, bars):
+    """One configuration through `ContinuousBatchingEngine`: every lane
+    against `BEVFormerEngine` on the same frames (classes and coords, and
+    each scene's pool slot against the engine's prev_bev), the launches of
+    every step exactly `per_step`, one backbone call a step over batch x
+    cams images."""
+    engine = ContinuousBatchingEngine(cfg, seed=0, max_scenes=max_scenes, batch=batch)
+    stream = serving_stream(cfg, scenes, frames)
+    check_rig(cfg, [stream[(0, 0)]])
+    serve_counted(engine, stream, min(scenes, max_scenes), 1)  # warm-up
+    got, steps, slots = serve_counted(engine, stream, scenes, frames,
+                                      finish_first=range(scenes - max_scenes))
+    ref = BEVFormerEngine(cfg, model=engine.model)
+    worst = {"classes": {"max": 0.0, "rms": 0.0}, "coords": {"max": 0.0, "rms": 0.0},
+             "bev_embed": {"max": 0.0, "rms": 0.0}}
+    for s in range(scenes):
+        ref.reset()
+        for t in range(frames):
+            classes, coords = ref.infer_frame(**stream[(s, t)])
+            pairs = (("classes", got[(s, t)][0], classes.cpu()),
+                     ("coords", got[(s, t)][1], coords.cpu()))
+            if t == frames - 1:
+                pairs += (("bev_embed", slots[s].cpu(), ref.state.prev_bev.cpu()),)
+            for name, a, b in pairs:
+                if not torch.isfinite(a).all():
+                    raise AssertionError(f"serving {cfg.name} {name} ({s}, {t}): non-finite")
+                r = rel_errors(a, b)
+                for k in ("max", "rms"):
+                    worst[name][k] = max(worst[name][k], r[k])
+                    if k in bars and not r[k] <= bars[k]:
+                        raise AssertionError(f"serving {cfg.name} {cfg.dtype} lane ({s}, {t}) "
+                                             f"{name}: {k} rel err {r[k]} > {bars[k]}")
+    images = batch * cfg.num_cams
+    for i, st in enumerate(steps):
+        if (st["launches"] != per_step or st["backbone_calls"] != 1
+                or st["backbone_images"] != [images]):
+            raise AssertionError(f"serving {cfg.name} {cfg.dtype} step {i}: {st}, want launches "
+                                 f"{per_step}, one backbone call over {images} images")
+    lanes = [st["lanes"] for st in steps]
+    log(f"serving {cfg.name} {cfg.dtype} batch {batch}, {scenes} scenes x {frames} frames over "
+        f"{max_scenes} slots: {len(steps)} steps, live lanes {lanes}, launches a step "
+        f"{dict(zip(COUNT_NAMES, steps[0]['launches']))}; lanes vs BEVFormerEngine: {worst}")
+    return engine, dict(steps=len(steps), live_lanes=lanes,
+                        launches_per_step=dict(zip(COUNT_NAMES, steps[0]["launches"])),
+                        lane_vs_engine=worst, bars=bars)
+
+
+def phase_serving(card):
+    """The continuous-batching engine at full width: tiny in float32 and
+    bfloat16 (4 slots, batch 4, 6 scenes x 3 frames, so slots are evicted,
+    reused and lanes padded), then base bfloat16 at batch 2 over 2 scenes x
+    3 frames; each lane held against `BEVFormerEngine` at the tiny phase's
+    bars (float32 max F32_MAX_TOL, bfloat16 rms BF16_RMS_TOL); the launches
+    of each step exact; serving and sequential frames/s from
+    `tools/serving_bench.py`'s own `bench`."""
+    res = {}
+    for dtype, bars in (("float32", dict(max=F32_MAX_TOL)), ("bfloat16", dict(rms=BF16_RMS_TOL))):
+        cfg = bevformer_tiny(dtype=dtype)
+        engine, res[f"tiny_{dtype}"] = serving_run(
+            card, cfg, 4, 4, SERVING_SCENES, SERVING_FRAMES,
+            counts_of(msda=12 * 4, flash_attn=6 * 4), bars)
+        if dtype == "bfloat16":
+            rec = serving_bench.bench(cfg, 4, 4, 4, engine=engine)
+            res["tiny_bfloat16"]["bench"] = rec
+            log(f"serving bench tiny bfloat16: {json.dumps(rec)} on {card}")
+        del engine
+        torch.cuda.empty_cache()
+    cfg = bevformer_base(dtype="bfloat16")
+    engine, res["base_bfloat16"] = serving_run(
+        card, cfg, 2, 2, 2, SERVING_FRAMES,
+        counts_of(msda=18 * 2, flash_attn=6 * 2, dcn=26, dcn_table=26), dict(rms=BF16_RMS_TOL))
+    rec = serving_bench.bench(cfg, 2, SERVING_FRAMES, 2, engine=engine)
+    res["base_bfloat16"]["bench"] = rec
+    log(f"serving bench base bfloat16: {json.dumps(rec)} on {card}")
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
+# Run in a fresh interpreter that imports the port alone, beside the export
+# loop: each artifact, once its CLI has written it (the `done` file), reloaded
+# through `runtime/export.py::load_program` and run on its inputs with the
+# launch counts set to 0 just before and read just after (`runs` times).
+# `computed`: parameters that feed any node other than a registered operator;
+# `wmat_args`: what each DCN operator reads as its weight matrix.
+RELOAD_CODE = """
+import json, sys, time, torch
+from pathlib import Path
+from bevformer_tensorrt_tpu_torch.ops import KERNEL_WRAPPERS, reset_launch_counts
+from bevformer_tensorrt_tpu_torch.runtime.export import load_program
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+for case in json.load(open(sys.argv[1])):
+    deadline = time.time() + 600
+    while not Path(case["done"]).exists():
+        assert time.time() < deadline, case["name"]
+        time.sleep(0.2)
+    t0 = time.perf_counter()
+    program = load_program(case["dir"])
+    load_s = time.perf_counter() - t0
+    args = torch.load(case["inputs"])
+    outs, counts, ms = [], [], []
+    for _ in range(case["runs"]):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = program(*args)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append([fn.launches for fn in KERNEL_WRAPPERS])
+        outs.append(torch.utils._pytree.tree_map(
+            lambda t: t.cpu() if torch.is_tensor(t) else t, out))
+    graph = program.program.graph_module.graph
+    params = program.program.graph_signature.inputs_to_parameters
+    computed = [params[n.name] for n in graph.nodes if n.name in params and n.op == "placeholder"
+                and any(not str(u.target).startswith("bevformer_port.") for u in n.users)]
+    wmat_args = [getattr(n.args[5], "op", None) for n in graph.nodes
+                 if str(n.target) == "bevformer_port.modulated_deform_conv2d.default"]
+    torch.save(dict(outs=outs, counts=counts, load_s=load_s, ms=ms, computed=computed,
+                    wmat_args=wmat_args), case["out"])
+    del program, out
+    torch.cuda.empty_cache()
+bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "bevformer_tensorrt_tpu"))
+assert not bad, bad
+"""
+
+
+def leaves(out):
+    return [t for t in torch.utils._pytree.tree_leaves(out) if torch.is_tensor(t)]
+
+
+def kept_weights(module):
+    """The weights whose kept matrix a program must hold in their place:
+    the fused DCN's (bfloat16 maps) and every folded int8 layer's."""
+    return [f"{n}.weight" for n, m in module.named_modules()
+            if (isinstance(m, DeformConv2d) and m._wmats)
+            or (isinstance(m, (QDense, QConv)) and m.wq is not None)]
+
+
+@contextlib.contextmanager
+def eager_reference(cli, inputs, path):
+    """While open, the export CLI module `cli` hands the module it built to
+    this first: it runs eagerly on `inputs(module)` (the launch counts set
+    to 0 just before and read just after), its outputs, launches, kept
+    weight matrices and seconds go into the yielded dict and its inputs to
+    `path`; then the CLI exports as it would.  Each model is built once,
+    by its CLI."""
+    ref = {}
+    export = cli.export_program
+
+    def capture(module, args, out_dir, meta=None):
+        t0 = time.perf_counter()
+        x = tuple(inputs(module))
+        with torch.no_grad():
+            reset_launch_counts()
+            out = module(*x)
+            torch.cuda.synchronize()
+        ref.update(outs=[t.cpu() for t in leaves(out)], counts=launch_counts(),
+                   kept=kept_weights(module))
+        torch.save(x, path)
+        del out, x
+        ref["s"] = time.perf_counter() - t0
+        return export(module, args, out_dir, meta)
+
+    cli.export_program = capture
+    try:
+        yield ref
+    finally:
+        cli.export_program = export
+
+
+def bevformer_inputs(module):
+    """A second synthetic frame's inputs, after a first through an engine
+    around `module` (prev_bev from it, use_prev_bev 1)."""
+    engine = BEVFormerEngine(module.cfg, model=module)
+    frames = synthetic_frames(module.cfg, np.random.default_rng(5), ("scene-A", "scene-A"))
+    engine.infer_frame(**frames[0])
+    return engine.frame_inputs(**frames[1])
+
+
+def bevdet_inputs(module):
+    cfg = module.model.cfg
+    return (torch.randn((1, cfg.num_cams, 3, cfg.input_h, cfg.input_w),
+                        generator=torch.Generator().manual_seed(6)).cuda(),)
+
+
+def det2d_inputs(module):
+    """A batch of seeded images (YOLOX takes raw pixels)."""
+    size = module.cfg.img_size
+    x = torch.rand((DET2D_BATCH, 3, size, size), generator=torch.Generator().manual_seed(7)).cuda()
+    return ((x * 255.0) if isinstance(module, YOLOX) else x,)
+
+
+def export_cases(work, root):
+    """(name, CLI module, inputs of the module it builds, CLI arguments,
+    runs) of the export phase, in the order
+    that leaves the reloading interpreter least to do after the last
+    export.  Tiny int8 takes the eval phase's scales (`tools/calibrate.py
+    tiny`, `max`, TSA's tables in floating point), the 2D detectors the 2D
+    phase's seeded checkpoints."""
+    ckpt = {name: str(work / f"{name}_upstream.pth") for name in ("yolox_x", "centernet_r18")}
+    return [
+        ("tiny_float32", export_cli, bevformer_inputs, ["tiny", "--dtype", "float32"], 1),
+        ("tiny_int8", export_cli, bevformer_inputs,
+         ["tiny", "--dtype", "float32", "--quant-scales", str(work / "tiny_scales.npz"),
+          "--quant", "int8"], 1),
+        ("base_bfloat16", export_cli, bevformer_inputs, ["base"], 1),
+        ("yolox_x", det2d_export, det2d_inputs,
+         ["yolox_x", "--batch", str(DET2D_BATCH), "--checkpoint", ckpt["yolox_x"]], 1),
+        ("bevdet_r50_bfloat16", bevdet_export, bevdet_inputs,
+         ["--infos", str(root / "nuscenes_infos_synthetic.pkl"), "--dtype", "bfloat16"], 1),
+        ("centernet_r18", det2d_export, det2d_inputs,
+         ["centernet_r18", "--batch", str(DET2D_BATCH), "--checkpoint", ckpt["centernet_r18"]],
+         2)]
+
+
+def phase_export(card, root, work):
+    """The deployable artifacts at full width: tiny float32, tiny int8 (the
+    eval phase's scales), base bfloat16 (the CLI's default), YOLOX-x and
+    CenterNet-R18 float32 at batch 8, BEVDet-R50 bfloat16 on the generated
+    set's rig, each through its export CLI into a temporary directory
+    (seconds and MB recorded), the module each CLI built run eagerly first
+    on real inputs (`eager_reference`), and each artifact reloaded, as it
+    is written, in one fresh interpreter that imports the port alone and
+    runs it on the card: the outputs bit for bit the eager module's on the
+    same inputs, each kernel launched as often as in the eager forward
+    (CenterNet twice, both runs bit for bit), and every kept weight matrix
+    (the fused DCN's, the folded int8 layers') a constant of the program:
+    its weight feeds no op but the registered operator beside it."""
+    cases = export_cases(work, root)
+    spec = [dict(name=name, dir=str(work / f"export_{name}"), runs=runs,
+                 inputs=str(work / f"export_{name}_inputs.pt"),
+                 out=str(work / f"export_{name}_got.pt"), done=str(work / f"export_{name}.done"))
+            for name, _, _, _, runs in cases]
+    spec_path = work / "export_spec.json"
+    spec_path.write_text(json.dumps(spec))
+    t_reload = time.perf_counter()
+    reload = subprocess.Popen([sys.executable, "-c", RELOAD_CODE, str(spec_path)], cwd=REPO)
+    res, eager = {}, {}
+    try:
+        for (name, cli, inputs, argv, _), case in zip(cases, spec):
+            t0 = time.perf_counter()
+            with eager_reference(cli, inputs, case["inputs"]) as ref:
+                line = cli.main(argv + ["--out", case["dir"]])
+            export_s = time.perf_counter() - t0 - ref["s"]
+            Path(case["done"]).touch()
+            eager[name] = ref
+            torch.cuda.empty_cache()
+            res[name] = dict(export_s=export_s, eager_s=ref["s"], artifact_mb=line["artifact_mb"],
+                             artifacts=line["artifacts"])
+            log(f"export {name}: {export_s:.1f} s (and {ref['s']:.1f} s of the eager reference), "
+                f"{line['artifact_mb']:.1f} MB, on {card}")
+        if reload.wait(timeout=900) != 0:
+            raise AssertionError(f"export: the reloading interpreter exited {reload.returncode}")
+    finally:
+        if reload.poll() is None:
+            reload.kill()
+            reload.wait()
+    res["reload_process_s"] = time.perf_counter() - t_reload
+    for case in spec:
+        name = case["name"]
+        got = torch.load(case["out"])
+        want, want_counts, kept = eager[name]["outs"], eager[name]["counts"], eager[name]["kept"]
+        for r, (outs, counts) in enumerate(zip(got["outs"], got["counts"])):
+            outs = leaves(outs)
+            if len(outs) != len(want):
+                raise AssertionError(f"export {name}: {len(outs)} outputs, eager {len(want)}")
+            if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(outs, want)):
+                diff = [rel_errors(a, b) for a, b in zip(outs, want)]
+                raise AssertionError(f"export {name} run {r}: reloaded program differs from the "
+                                     f"eager module: {diff}")
+            if tuple(counts) != tuple(want_counts):
+                raise AssertionError(f"export {name} run {r}: launches {counts}, eager "
+                                     f"{want_counts}")
+        computed = sorted(set(kept) & set(got["computed"]))
+        if computed or any(op != "placeholder" for op in got["wmat_args"]):
+            raise AssertionError(f"export {name}: the program computes from the weights of kept "
+                                 f"matrices {computed[:5]} ({len(computed)}); DCN weight matrix "
+                                 f"arguments {got['wmat_args']}")
+        res[name].update(load_s=got["load_s"], run_ms=got["ms"], runs=len(got["outs"]),
+                         launches=dict(zip(COUNT_NAMES, got["counts"][0])), bit_for_bit=True,
+                         kept_matrices=len(kept), dcn_operators=len(got["wmat_args"]))
+        log(f"export {name}: reloaded in {got['load_s']:.1f} s, runs {got['ms']} ms, bit for bit "
+            f"the eager module, launches {res[name]['launches']}, {len(kept)} kept "
+            f"matrices held as constants")
+    return res
+
+
 def frame_sums(rows, frame, library, extra=(), dtype="float32", key="launches_per_frame"):
     """The `dtype` launches of one `frame` (tiny, base) at the main path's
     shapes, summed: ms per frame.  `extra` names further row keys to sum."""
@@ -2891,7 +3270,9 @@ def main(argv=None):
             ("qat", lambda: phase_qat(card, dev, root, work)),
             ("bevdet", lambda: phase_bevdet(card, dev, gen, root, work)),
             ("bevdet_train", lambda: phase_bevdet_train(card, root, work)),
-            ("det2d", lambda: phase_det2d(card, dev, gen, work))):
+            ("det2d", lambda: phase_det2d(card, dev, gen, work)),
+            ("serving", lambda: phase_serving(card)),
+            ("export", lambda: phase_export(card, root, work))):
         t0 = time.perf_counter()
         res[phase] = fn()
         seconds[phase] = time.perf_counter() - t0
@@ -3024,6 +3405,15 @@ def main(argv=None):
                    "tool",
             "shapes": rows})
     add_det2d(kernels, res["det2d"])
+    serving, exported = res["serving"], res["export"]
+    for k in kernels:  # a serving step's launches, and each reloaded program's
+        counter = ENTRY_COUNTERS.get(k["name"], k["name"])
+        if counter in ("msda", "flash_attn", "dcn", "dcn_table"):
+            k["serving_launches_per_step"] = {
+                f"{cell} batch {B}": serving[cell]["launches_per_step"][counter]
+                for cell, B in (("tiny_float32", 4), ("tiny_bfloat16", 4), ("base_bfloat16", 2))}
+        k["export_launches"] = {case: rec["launches"][counter] for case, rec in exported.items()
+                                if isinstance(rec, dict) and counter in rec["launches"]}
     for k in kernels:
         if k.get("main_path", True) and (k["launches"] < 1 or k.get("base_launches", 1) < 1
                                          or k.get("small_launches", 1) < 1

@@ -88,7 +88,9 @@ def test_port_imports_no_jax():
                    "models.necks.ct_resnet_neck", "models.heads.yolox_head",
                    "models.heads.centernet_head", "models.detectors.yolox",
                    "models.detectors.centernet", "core.nms2d", "data.coco", "evalsuite.coco_map",
-                   "runtime.det2d_engine", "tools.det2d.evaluate", "tools.det2d.calibrate"):
+                   "runtime.det2d_engine", "tools.det2d.evaluate", "tools.det2d.calibrate",
+                   "runtime.serving", "runtime.export", "tools.serving_bench", "tools.export",
+                   "tools.bevdet.export", "tools.det2d.export"):
         assert os.path.exists(os.path.join(REPO, "bevformer_tensorrt_tpu_torch",
                                            *module.split(".")) + ".py"), module
 
@@ -457,3 +459,54 @@ def test_left_out_flags_are_named(tool, capsys):
     with pytest.raises(SystemExit):
         main(["--help"])
     assert "Not ported from the JAX CLI: --distributed" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("tool", ["serving_bench", "export", "bevdet.export", "det2d.export"])
+def test_serving_and_export_clis_default_to_cuda(tool, tmp_path, monkeypatch):
+    """The serving bench and the three export CLIs run on CUDA unless
+    `--device cpu` is given: without a card they raise before any work."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    main = importlib.import_module(f"bevformer_tensorrt_tpu_torch.tools.{tool}").main
+    argv = {"serving_bench": ["--model", "micro"], "export": ["micro"],
+            "bevdet.export": ["--infos", str(tmp_path / "none.pkl")],
+            "det2d.export": ["yolox_micro"]}[tool]
+    argv += [] if tool == "serving_bench" else ["--out", str(tmp_path / "out")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(argv)
+    assert not (tmp_path / "out").exists()
+
+
+def test_serving_engine_and_loader_refuse_cpu_fallback(tmp_path, monkeypatch):
+    from bevformer_tensorrt_tpu_torch.runtime.export import load_program
+    from bevformer_tensorrt_tpu_torch.runtime.serving import ContinuousBatchingEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinuousBatchingEngine(bevformer_micro())
+    assert ContinuousBatchingEngine(bevformer_micro(), device="cpu").pool.device.type == "cpu"
+    (tmp_path / "meta.json").write_text('{"device": "cpu"}')
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_program(tmp_path)
+
+
+def test_export_cli_names_the_left_out_autotune(capsys):
+    """The BEVFormer export CLI names the JAX CLI's Mosaic autotune flags,
+    which it leaves out, in its help."""
+    from bevformer_tensorrt_tpu_torch.tools import export
+
+    with pytest.raises(SystemExit):
+        export.main(["--help"])
+    assert ("Not ported from the JAX CLI: --autotune, --autotune-iters"
+            in " ".join(capsys.readouterr().out.split()))
+
+
+def test_deform_conv_weight_starts_defined():
+    """A built DeformConv2d's weight is zeros until init or a load fills it:
+    it was `torch.empty`, whose NaNs, where the allocator handed back used
+    memory, made a built model's state_dict differ from itself."""
+    from bevformer_tensorrt_tpu_torch.models.backbones.resnet import DeformConv2d
+
+    torch.full((64, 64, 3, 3), float("nan"))  # leave NaNs in freed memory
+    assert torch.equal(DeformConv2d(64, 64).weight, torch.zeros(64, 64, 3, 3))

@@ -209,3 +209,21 @@ def test_kernel_bench_dcn_split_rehearses_on_the_cpu(capsys):
         ("dcn_split", "dcn_op", kind) for kind in kernel_bench.DCN_KINDS]
     assert all(r["cpu_ms"] > 0 and "ms" not in r for r in rows)
     assert {r["dtype"] for r in rows} == {"bfloat16", "float32"}
+
+
+def test_kernel_bench_dispatch_layers_compute_one_function(monkeypatch):
+    """`--parts dispatch`: each registered operator and the model's wrapper
+    around it give the same output on the CPU (the launch functions are
+    CUDA's), every frame's calls name a timed case, and the part refuses
+    to run without a card."""
+    monkeypatch.setattr(kc, "DCN_SHAPES", dict(kc.DCN_SHAPES, base_s3=(1, 64, 6, 7, 32, 1, 1,
+                                                                          0, 0, 1)))
+    bench = kernel_bench.Bench(torch.device("cpu"), [])
+    with torch.inference_mode():
+        cases = kernel_bench.dispatch_cases(bench)
+        for name, (shape, launch, op, wrapper) in cases.items():
+            assert torch.equal(op(), wrapper()), name
+    assert {k for calls in kernel_bench.DISPATCH_FRAMES.values() for k in calls} <= set(cases)
+    assert sum(kernel_bench.DISPATCH_FRAMES["tiny int8"].values()) == 220
+    with pytest.raises(SystemExit, match="CUDA"):
+        kernel_bench.main(["--device", "cpu", "--parts", "dispatch"])

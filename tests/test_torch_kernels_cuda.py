@@ -508,7 +508,7 @@ def test_msda_int8_kernel_matches_plain(cuda, dtype, shapes, P, ppg, ch, bs, nq)
               msda_ops.multi_scale_deformable_attn.launches)
     got = msda_ops.multi_scale_deformable_attn_int8(value, ref, off, attn, shapes)
     table = msda_ops.quantize_value_table(value)
-    same = msda_ops.multi_scale_deformable_attn_int8(value, ref, off, attn, shapes, table=table)
+    same = msda_ops._msda_cuda(value, ref, off, attn, shapes, int8_table=table)
     want = msda_ops.multi_scale_deformable_attn_int8_plain(value, ref, off, attn, shapes)
     torch.cuda.synchronize()
     assert (msda_ops.multi_scale_deformable_attn_int8.launches,
@@ -661,9 +661,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                       q[..., :8].contiguous())
     value, ref, off, attn = msda_case(((6, 7),), 1, 10, 2, 32, 4, 1, torch.float32, cuda)
     with pytest.raises(ValueError, match="table"):
-        msda_ops.multi_scale_deformable_attn_int8(
-            value, ref, off, attn, ((6, 7),),
-            table=(value.to(torch.int8), torch.ones(1, 3, device=cuda)))
+        msda_ops._msda_cuda(value, ref, off, attn, ((6, 7),),
+                            int8_table=(value.to(torch.int8), torch.ones(1, 3, device=cuda)))
     x, off, mask, weight, _ = dcn_case(1, 64, 6, 7, 4, 1, 1, torch.float32, cuda)
     q, scale = dcn_ops.quantize_dcn_table(x, 64)
     with pytest.raises(TypeError, match="int8"):

@@ -247,7 +247,7 @@ def _route_through_functions(monkeypatch, ops):
     if "msda" in ops:
         monkeypatch.setattr(msda_ops, "_msda_cuda", _msda_stub)
         monkeypatch.setattr(msda_ops, "multi_scale_deformable_attn",
-                            lambda v, r, o, a, s: msda_ops._msda_kernel(v, r, o, a, tuple(s), None))
+                            lambda v, r, o, a, s: msda_ops._msda_kernel(v, r, o, a, tuple(s), False))
     if "flash" in ops:
         monkeypatch.setattr(attn_ops, "_flash_cuda", _flash_stub)
         monkeypatch.setattr(attn_ops, "flash_attention",
