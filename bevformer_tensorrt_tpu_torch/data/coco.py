@@ -1,13 +1,13 @@
-"""COCO-format 2D detection set, its evaluation path (port of
-`bevformer_tensorrt_tpu/data/coco.py`: `raw`, `_letterbox`, `_normalize`,
-`sample`; the training view waits for the 2D training slice).
+"""COCO-format 2D detection set: its evaluation and training views (port of
+`bevformer_tensorrt_tpu/data/coco.py`).
 
 Parses an instances_*.json directly (no pycocotools), maps the sparse
 category ids to contiguous labels, and serves each image letterboxed (a
 nearest keep-ratio resize padded with 114 to a square, the YOLOX eval
-pipeline), normalized, CHW, with its annotations as xyxy in the original
-image's pixels.  Images are read by the port's own `data.nuscenes.load_image`
-(BGR, as mmcv reads them).
+pipeline), normalized, CHW: `sample` with its annotations as xyxy in the
+original image's pixels, `train_sample` (after the optional augmentation of
+`data/transforms2d.py`) with them in the model input's pixels.  Images are
+read by the port's own `data.nuscenes.load_image` (BGR, as mmcv reads them).
 """
 from __future__ import annotations
 
@@ -84,6 +84,23 @@ class CocoDataset:
             canvas = canvas[..., ::-1]
         canvas = (canvas - self.mean) / self.std
         return canvas.transpose(2, 0, 1).astype(np.float32)
+
+    def train_sample(self, i: int, augment=None):
+        """The training view: (normalized letterboxed image, xyxy boxes,
+        labels) with the GT in the model input's pixels, where the loss's
+        grid priors are: scaled by the letterbox, clipped to the square, the
+        boxes of 1 px or less dropped.  `augment` is a
+        `transforms2d.YoloxTrainAugment` or None."""
+        if augment is not None:
+            img, boxes, labels = augment(i, len(self), self.raw)
+        else:
+            img, boxes, labels = self.raw(i)
+        canvas, scale = self._letterbox(img)
+        boxes = boxes * scale
+        boxes[:, 0::2] = boxes[:, 0::2].clip(0, self.img_size)
+        boxes[:, 1::2] = boxes[:, 1::2].clip(0, self.img_size)
+        keep = ((boxes[:, 2] - boxes[:, 0]) > 1) & ((boxes[:, 3] - boxes[:, 1]) > 1)
+        return self._normalize(canvas), boxes[keep], labels[keep]
 
     def sample(self, i: int) -> CocoSample:
         img = self._image(i)

@@ -19,7 +19,9 @@ from .dcn import (
     quantize_dcn_table,
 )
 from .gather_probe import gather_blend, gather_blend_plain, gather_rows, gather_rows_plain
+from .grid_sample import grid_sample_2d, grid_sample_3d, grid_sampler
 from . import int8_matmul  # the module: its wrapper shares the name
+from .inverse import inverse, inverse_4x4  # the function shadows its module here
 from .msda import (
     msda_sampling_locations,
     multi_scale_deformable_attn,
@@ -28,6 +30,7 @@ from .msda import (
     multi_scale_deformable_attn_plain,
 )
 from .rotate import rotate
+from .voxel import points_in_rotated_boxes, roiaware_pool3d, voxelize
 
 # every function that carries a launch count, in the order the smoke run
 # reports them: the model's kernels (the DCN op's fused kernel from the float
@@ -62,6 +65,11 @@ __all__ = [
     "gather_blend_plain",
     "gather_rows",
     "gather_rows_plain",
+    "grid_sample_2d",
+    "grid_sample_3d",
+    "grid_sampler",
+    "inverse",
+    "inverse_4x4",
     "quantize_dcn_table",
     "modulated_deform_conv2d",
     "modulated_deform_conv2d_int8",
@@ -72,7 +80,10 @@ __all__ = [
     "multi_scale_deformable_attn_int8",
     "multi_scale_deformable_attn_int8_plain",
     "multi_scale_deformable_attn_plain",
+    "points_in_rotated_boxes",
+    "roiaware_pool3d",
     "rotate",
+    "voxelize",
     "KERNEL_WRAPPERS",
     "reset_launch_counts",
 ]

@@ -102,9 +102,11 @@ Phases (any failure exits non-zero before the result lines):
      same seeded weights: the same matching on every decoder level, the loss
      within 1e-4, each parameter's gradient within TRAIN_GRAD_REL_L2, the
      plain path under 1e-7 image noise measured beside it; 20 overfit steps
-     on the kernel path with the train CLI's warmup (launch counts around
-     them, the last loss below the first; each step split into forward,
-     backward and optimizer, and peak memory) and 5 on the plain path; one temporal step of a 4-frame clip
+     on the kernel path with the train CLI's warmup in PyTorch's
+     deterministic mode, twice from the seeded state (launch counts around
+     them, the same losses in both runs, the last below the first); 5
+     steps of each path from that state in the default mode, each split
+     into forward, backward and optimizer, and peak memory; one temporal step of a 4-frame clip
      (4 forwards of launches, a loss other than the last frame's alone);
      `tools/train.py tiny` for 5 steps, then `tools/evaluate.py tiny
      --checkpoint` on its `.pth`; one `tools/train.py small` step with one
@@ -157,7 +159,21 @@ Phases (any failure exits non-zero before the result lines):
      loop's, the batch latency and the eval loop's ms an image, peak memory;
      the int8 product timed at every shape a batch launched, the DCN at
      CenterNet's three neck shapes.
- 18. Serving (`runtime/serving.py::ContinuousBatchingEngine`) at full
+ 18. YOLOX-x and CenterNet-R18 training at 640 px, batch 8, float32, from
+     phase 17's checkpoints on its set: for CenterNet-R18 one step on the
+     kernel path against the same step with the plain versions swapped in
+     (3 im2col launches, the neck DCNs' forward; the loss within
+     TRAIN_LOSS_TOL, each gradient within TRAIN_GRAD_REL_L2, the plain path
+     under 1e-7 image noise beside it); 20 overfit steps of the train CLI's
+     step and recipe on the set's first batch without augmentation, in
+     PyTorch's deterministic mode, twice from the checkpoint (the same
+     losses, the loss falls; launches a step: CenterNet 3 im2col, YOLOX
+     none), after 5 steps from the checkpoint in the default mode (forward,
+     backward and optimizer ms; peak memory; the top kernels of one step);
+     `tools/det2d/train.py` for 3 augmented steps, its `.pth` read by
+     `tools/det2d/evaluate.py`; 3 QAT steps (`--quant-scales`, phase 17's
+     `max` scales).
+ 19. Serving (`runtime/serving.py::ContinuousBatchingEngine`) at full
      width: tiny in float32 and bfloat16 with 4 slots at batch 4 over 6
      scenes x 3 frames (slots evicted by `finish_scene`, reused, lanes
      padded), base bfloat16 at batch 2 over 2 scenes x 3 frames; every
@@ -168,7 +184,7 @@ Phases (any failure exits non-zero before the result lines):
      tables, the backbone running once a step over B x 6 images);
      `tools/serving_bench.py`'s `bench`: serving against sequential
      frames/s.
- 19. Export: tiny float32, tiny int8 (phase 12's `tools/calibrate.py`
+ 20. Export: tiny float32, tiny int8 (phase 12's `tools/calibrate.py`
      scales), base bfloat16, YOLOX-x and CenterNet-R18 float32 at batch 8,
      BEVDet-R50 bfloat16 on the generated set's rig through their export
      CLIs (seconds, MB), the module each CLI built run eagerly on real
@@ -176,7 +192,7 @@ Phases (any failure exits non-zero before the result lines):
      interpreter that imports the port alone and run on the card: outputs
      bit for bit the eager module's, each kernel launched as often as in
      the eager forward, CenterNet's two runs bit for bit.
- 20. One JSON line of per-kernel numbers, the nvidia-smi line of the card,
+ 21. One JSON line of per-kernel numbers, the nvidia-smi line of the card,
      and the final `{"ok": true, "device": ...}` line.
 Ahead of phase 10, three phases of their own:
   a. The DCN op from the int8 table (the fused kernel, float32 and
@@ -210,6 +226,7 @@ import argparse
 import collections
 import contextlib
 import json
+import os
 import pickle
 import subprocess
 import sys
@@ -276,6 +293,7 @@ from bevformer_tensorrt_tpu_torch.tools.bevdet import evaluate as bevdet_evaluat
 from bevformer_tensorrt_tpu_torch.tools.bevdet import train as bevdet_train
 from bevformer_tensorrt_tpu_torch.tools.det2d import calibrate as det2d_calibrate
 from bevformer_tensorrt_tpu_torch.tools.det2d import evaluate as det2d_evaluate
+from bevformer_tensorrt_tpu_torch.tools.det2d import train as det2d_train
 from bevformer_tensorrt_tpu_torch.tools.bevdet.evaluate import checkpoint_state_dict
 from bevformer_tensorrt_tpu_torch.tools import kernel_cases as kc
 from bevformer_tensorrt_tpu_torch.tools.kernel_cases import (
@@ -1567,10 +1585,15 @@ GRAD_CASES = (("msda", "sca"), ("msda", "tsa"), ("msda", "decoder"), ("msda_int8
               ("dcn_fused", "base_s3"), ("dcn_fused_int8", "base_s3"))
 TRAIN_OVERFIT_STEPS = 20
 # the train CLI's warmup rule, min(500, steps // 5): without it the first
-# full-rate AdamW steps throw the loss from 4.5 to 8.5, and with the card's
-# run-to-run nondeterminism the 20th loss ended above or below the first
+# full-rate AdamW steps throw the loss from 4.5 to 8.5.  With it the run is
+# still chaotic: on the H100 the losses of six runs of this phase agreed to
+# 3 decimals for 4 steps, then spread (5.03-5.18 at step 5) and climbed as
+# high as 8.1 before falling, and the 20th ended between 3.54 and 5.07
+# against a first of 4.505: above it once.  So the overfit run goes through
+# `deterministic()`, and the phase runs it twice and requires the same
+# losses, so that its verdict no longer depends on the order of atomics.
 TRAIN_OVERFIT_WARMUP = TRAIN_OVERFIT_STEPS // 5
-TRAIN_PLAIN_STEPS = 5
+TRAIN_PLAIN_STEPS = 5  # timed steps of each path, in the default (nondeterministic) mode
 TRAIN_QUEUE = 4
 TRAIN_LOSS_TOL = 1e-4  # relative, the kernel path's loss against the plain path's
 # Each parameter's gradient, kernel path against plain path, in the relative
@@ -1583,6 +1606,26 @@ TRAIN_GRAD_REL_L2 = 3e-3
 # A key projection's bias adds q.b to every logit of a query, which the softmax
 # ignores: its gradient is 0 up to float noise, so it has no relative error.
 ZERO_GRADIENT = ("self_attn.k_proj.bias",)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms and cuDNN's deterministic
+    convolutions, restored on exit: the backward's scatters and the
+    convolutions' reductions no longer depend on the order of atomics, and
+    an op with no deterministic version raises.  cuBLAS needs
+    CUBLAS_WORKSPACE_CONFIG, which `main` sets before the first product."""
+    cudnn = torch.backends.cudnn
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(), cudnn.deterministic,
+             cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        cudnn.deterministic, cudnn.benchmark = saved[2], saved[3]
 
 
 def grad_rows(dev, gen):
@@ -1643,30 +1686,9 @@ def grad_rel_l2(got, want, names):
 
 
 def timed_steps(model, opt, batch, n):
-    """n single-frame steps, each split by synchronised host clocks into
-    forward (with the host matching), backward and optimizer; losses and
-    the peak device memory of the steps."""
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, split = [], []
-    for _ in range(n):
-        t0 = time.perf_counter()
-        opt.zero_grad()
-        loss, m = loss_fn(model, batch)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        loss.backward()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        opt.step()
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        losses.append(float(m["loss"]))
-        split.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3))
-    med = np.median(np.array(split), axis=0)
-    return dict(losses=losses, forward_ms=float(med[0]), backward_ms=float(med[1]),
-                optimizer_ms=float(med[2]), step_ms=float(np.median([sum(s) for s in split])),
-                peak_memory_mb=torch.cuda.max_memory_allocated() / 1e6, steps=n)
+    """n single-frame steps (the host matching in the forward), split as
+    `split_steps`."""
+    return split_steps(lambda: loss_fn(model, batch)[0], opt, n)
 
 
 def train_paths(card, dev, root):
@@ -1729,25 +1751,40 @@ def train_paths(card, dev, root):
     del model, k_grads, p_grads, n_grads
     torch.cuda.empty_cache()
 
-    # the overfit run on the kernel path, counts around it; the plain path's steps
+    # the kernel path's steps timed in the default mode; the overfit run on
+    # the kernel path in deterministic mode, twice from the seeded state,
+    # counts around them; the plain path's steps timed
     model, opt = init_train_state(cfg, dev, seed=0, learning_rate=2e-4,
                                   total_steps=TRAIN_OVERFIT_STEPS,
                                   warmup_steps=TRAIN_OVERFIT_WARMUP)
-    reset_launch_counts()
-    kernel_run = timed_steps(model, opt, batch, TRAIN_OVERFIT_STEPS)
-    counts = launch_counts()
-    want = counts_of(msda=12 * TRAIN_OVERFIT_STEPS, flash_attn=6 * TRAIN_OVERFIT_STEPS)
-    losses = kernel_run["losses"]
-    log(f"train tiny overfit on {card}: {TRAIN_OVERFIT_STEPS} steps, launches "
-        f"{dict(zip(COUNT_NAMES, counts))}; loss {losses[0]:.4f} -> {losses[-1]:.4f}; step "
+    kernel_run = timed_steps(model, opt, batch, TRAIN_PLAIN_STEPS)
+    log(f"train tiny kernel path on {card}: {TRAIN_PLAIN_STEPS} steps, step "
         f"{kernel_run['step_ms']:.1f} ms (median): forward {kernel_run['forward_ms']:.1f}, "
         f"backward {kernel_run['backward_ms']:.1f}, optimizer {kernel_run['optimizer_ms']:.1f}; "
-        f"peak {kernel_run['peak_memory_mb']:.0f} MB")
+        f"peak {kernel_run['peak_memory_mb']:.0f} MB; losses {kernel_run['losses']}")
+    res["kernel_path"] = kernel_run
+    reset_launch_counts()
+    overfit = []
+    for _ in range(2):
+        model, opt = init_train_state(cfg, dev, seed=0, learning_rate=2e-4,
+                                      total_steps=TRAIN_OVERFIT_STEPS,
+                                      warmup_steps=TRAIN_OVERFIT_WARMUP)
+        with deterministic():
+            overfit.append(timed_steps(model, opt, batch, TRAIN_OVERFIT_STEPS))
+    counts = launch_counts()
+    want = counts_of(msda=2 * 12 * TRAIN_OVERFIT_STEPS, flash_attn=2 * 6 * TRAIN_OVERFIT_STEPS)
+    losses = overfit[0]["losses"]
+    log(f"train tiny overfit on {card} (deterministic, twice): {TRAIN_OVERFIT_STEPS} steps, "
+        f"launches {dict(zip(COUNT_NAMES, counts))}; loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"{[round(x, 4) for x in losses]}; step {overfit[0]['step_ms']:.1f} ms (median)")
     if counts != want:
         raise AssertionError(f"train tiny overfit: expected {want} launches, got {counts}")
+    if overfit[1]["losses"] != losses:
+        raise AssertionError(f"train tiny overfit: deterministic runs differ: {losses} and "
+                             f"{overfit[1]['losses']}")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"train tiny overfit: losses {losses}")
-    res["kernel_path"] = kernel_run
+    res["overfit"] = overfit[0]
     del model, opt
     torch.cuda.empty_cache()
     model, opt = init_train_state(cfg, dev, seed=0, learning_rate=2e-4,
@@ -1759,9 +1796,10 @@ def train_paths(card, dev, root):
         f"{plain_run['step_ms']:.1f} ms (median): forward {plain_run['forward_ms']:.1f}, "
         f"backward {plain_run['backward_ms']:.1f}, optimizer {plain_run['optimizer_ms']:.1f}; "
         f"peak {plain_run['peak_memory_mb']:.0f} MB; losses {plain_run['losses']}")
-    if not abs(plain_run["losses"][0] - losses[0]) <= TRAIN_LOSS_TOL * abs(losses[0]):
+    first = kernel_run["losses"][0]
+    if not abs(plain_run["losses"][0] - first) <= TRAIN_LOSS_TOL * abs(first):
         raise AssertionError(f"train tiny: first loss {plain_run['losses'][0]} on the plain path "
-                             f"against {losses[0]}")
+                             f"against {first}")
     res["plain_path"] = plain_run
 
     # one temporal step: a clip of TRAIN_QUEUE frames (the generator writes
@@ -2340,31 +2378,36 @@ BEVDET_CLI_STEPS = 3
 BEVDET_QAT_STEPS = 3
 
 
-def bevdet_timed_steps(model, opt, rank_args, batch, n):
-    """n BEVDet steps (the train CLI's), each split by synchronised host
-    clocks into forward (with the loss), backward and optimizer; the losses
-    and the steps' peak device memory."""
+def split_steps(loss_of, opt, n):
+    """n steps of `loss_of()` (the loss tensor), backward and `opt`, each
+    split by synchronised host clocks into forward (with the loss), backward
+    and optimizer; the losses and the steps' peak device memory."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, split = [], []
     for _ in range(n):
         t0 = time.perf_counter()
         opt.zero_grad()
-        m = bevdet_train.loss_fn(model, rank_args, batch)
+        loss = loss_of()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        m["loss"].backward()
+        loss.backward()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         opt.step()
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        losses.append(float(m["loss"].detach()))
+        losses.append(float(loss.detach()))
         split.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3))
     med = np.median(np.array(split), axis=0)
     return dict(losses=losses, forward_ms=float(med[0]), backward_ms=float(med[1]),
                 optimizer_ms=float(med[2]), step_ms=float(np.median([sum(s) for s in split])),
                 peak_memory_mb=torch.cuda.max_memory_allocated() / 1e6, steps=n)
+
+
+def bevdet_timed_steps(model, opt, rank_args, batch, n):
+    """n BEVDet steps (the train CLI's), split as `split_steps`."""
+    return split_steps(lambda: bevdet_train.loss_fn(model, rank_args, batch)["loss"], opt, n)
 
 
 def step_kernels(fn, top=12):
@@ -2738,6 +2781,180 @@ def phase_det2d(card, dev, gen, work, models=("yolox_x", "centernet_r18"), size=
         torch.cuda.empty_cache()
     res["centernet_dcn"] = centernet_dcn_rows(dev, gen, dcn_launches)
     return res
+
+
+# ---- phase 18: YOLOX-x and CenterNet-R18 training -----------------------------
+
+# YOLOX-x's loss at the constant rate leaps as well (17.8 -> 1743.4 at the
+# 19th step on the H100, against a first of 3578.4), so this overfit run
+# too goes through `deterministic()`, twice
+DET2D_OVERFIT_STEPS = 20
+DET2D_TIMED_STEPS = 5  # in the default (nondeterministic) mode
+DET2D_CLI_STEPS = 3
+DET2D_QAT_STEPS = 3
+
+
+def det2d_step_grads(model, batch):
+    """(loss, each parameter's gradient) of one batch's loss and backward."""
+    model.zero_grad(set_to_none=True)
+    loss = det2d_train.loss_fn(model, batch)["loss"]
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().clone()
+                                  for n, p in model.named_parameters() if p.grad is not None}
+
+
+def det2d_train_paths(card, name, model, batch):
+    """CenterNet-R18's step on the kernel path against the same step with
+    the plain versions swapped in: 3 im2col launches (the three neck DCNs'
+    forward; the backward recomputes the plain version), the loss within
+    TRAIN_LOSS_TOL, each gradient within TRAIN_GRAD_REL_L2 (the plain path
+    under 1e-7 image noise measured beside it)."""
+    noisy = dict(batch)
+    g = torch.Generator().manual_seed(1)
+    noisy["image"] = batch["image"] * (1 + IMAGE_NOISE * torch.randn(
+        batch["image"].shape, generator=g).to(batch["image"].device))
+    reset_launch_counts()
+    k_loss, k_grads = det2d_step_grads(model, batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != counts_of(dcn_im2col=3):
+        raise AssertionError(f"{name} train kernel path: launches {counts}")
+    with plain_versions():
+        p_loss, p_grads = det2d_step_grads(model, batch)
+        n_loss, n_grads = det2d_step_grads(model, noisy)
+    loss_err = abs(k_loss - p_loss) / abs(p_loss)
+    if sorted(k_grads) != sorted(p_grads):
+        raise AssertionError(f"{name} train: the paths give gradients to different parameters")
+    names = list(p_grads)
+    kern = grad_rel_l2(k_grads, p_grads, names)
+    chaos = grad_rel_l2(n_grads, p_grads, names)
+    worst = sorted(names, key=lambda n: -kern[n])[:5]
+    log(f"{name} train kernel vs plain on {card}: launches {dict(zip(COUNT_NAMES, counts))}; "
+        f"loss {k_loss:.6f} vs {p_loss:.6f} (rel {loss_err:.2e}); gradient rel L2 over "
+        f"{len(names)} parameters: max {max(kern.values()):.3e}, median "
+        f"{np.median(list(kern.values())):.3e}; the plain path under {IMAGE_NOISE} image noise: "
+        f"max {max(chaos.values()):.3e}, loss {n_loss:.6f}")
+    for n in worst:
+        log(f"  {n}: kernel vs plain {kern[n]:.3e}, plain under noise {chaos[n]:.3e}")
+    if not loss_err <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"{name} train: loss {k_loss} against plain {p_loss}")
+    bad = [n for n in names if not kern[n] <= TRAIN_GRAD_REL_L2]
+    if bad:
+        raise AssertionError(f"{name} train: gradients of {bad[:5]} above {TRAIN_GRAD_REL_L2}")
+    return dict(loss=k_loss, plain_loss=p_loss, loss_rel_err=loss_err, parameters=len(names),
+                launches=dict(zip(COUNT_NAMES, counts)), grad_rel_l2_max=max(kern.values()),
+                grad_rel_l2_median=float(np.median(list(kern.values()))),
+                noise_grad_rel_l2_max=max(chaos.values()),
+                worst={n: (kern[n], chaos[n]) for n in worst})
+
+
+def det2d_train_model(card, dev, name, ann, img_root, work):
+    """One detector's training at 640 px, batch 8, float32, from the 2D
+    phase's seeded checkpoint: (CenterNet) kernel path against plain path;
+    5 steps on the set's first batch without augmentation timed in the
+    default mode (forward, backward and optimizer ms; peak memory; the top
+    kernels of one step); 20 overfit steps on that batch in deterministic
+    mode, twice from the checkpoint (the same losses, the loss falls;
+    launches); the train CLI for 3 steps with its
+    augmentation, its `.pth` read by `tools/det2d/evaluate.py`; 3 QAT steps
+    of the CLI from the 2D phase's `max` scales."""
+    cfg = det2d_engine.make_config(name)
+    ckpt, scales = str(work / f"{name}_upstream.pth"), str(work / f"{name}_scales.npz")
+    centernet = name.startswith("centernet")
+    ds = det2d_evaluate.dataset_of(name, cfg, ann, img_root)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in det2d_train.load_batch(ds, range(DET2D_BATCH), None).items()}
+    model = det2d_train.build_model(name, cfg, ckpt, dev)
+    out = {"gt": int((batch["gt_labels"] >= 0).sum())}
+    if centernet:
+        out["kernel_vs_plain"] = det2d_train_paths(card, name, model, batch)
+    opt = det2d_train.make_optimizer(model, 1e-4)
+    steps = split_steps(lambda: det2d_train.loss_fn(model, batch)["loss"], opt, DET2D_TIMED_STEPS)
+    steps["step_kernels"] = step_kernels(lambda: split_steps(
+        lambda: det2d_train.loss_fn(model, batch)["loss"], opt, 1))
+    log(f"{name} train on {card}: {DET2D_TIMED_STEPS} steps, step {steps['step_ms']:.1f} ms "
+        f"median (forward {steps['forward_ms']:.1f}, backward {steps['backward_ms']:.1f}, "
+        f"optimizer {steps['optimizer_ms']:.1f}); peak {steps['peak_memory_mb']:.0f} MB; top "
+        "device kernels (torch.profiler, one step): " + "; ".join(
+            f"{k['ms']:.2f} ms x{k['calls']} {k['name'][:70]}" for k in steps["step_kernels"][:8]))
+    out["steps"] = steps
+    want = counts_of(dcn_im2col=3 * DET2D_OVERFIT_STEPS) if centernet else counts_of()
+    overfit = []
+    for _ in range(2):
+        del model, opt
+        model = det2d_train.build_model(name, cfg, ckpt, dev)
+        opt = det2d_train.make_optimizer(model, 1e-4)
+        reset_launch_counts()
+        with deterministic():
+            overfit.append(split_steps(lambda: det2d_train.loss_fn(model, batch)["loss"], opt,
+                                       DET2D_OVERFIT_STEPS))
+        counts = launch_counts()
+        if counts != want:
+            raise AssertionError(f"{name} train: expected launches {want}, got {counts}")
+        overfit[-1]["launches"] = dict(zip(COUNT_NAMES, counts))
+    losses = overfit[0]["losses"]
+    log(f"{name} train on {card}: {DET2D_OVERFIT_STEPS} overfit steps (deterministic, twice) on "
+        f"one batch of {DET2D_BATCH} ({out['gt']} GT), loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(min {min(losses):.4f}) {[round(x, 3) for x in losses]}; launches "
+        f"{overfit[0]['launches']}")
+    if overfit[1]["losses"] != losses:
+        raise AssertionError(f"{name} train: deterministic runs differ: {losses} and "
+                             f"{overfit[1]['losses']}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{name} train: the loss did not fall: {losses}")
+    out["overfit"] = overfit[0]
+    del model, opt, batch
+    torch.cuda.empty_cache()
+
+    common = [name, "--ann", ann, "--img-root", img_root, "--batch", str(DET2D_BATCH),
+              "--device", "cuda"]
+    pth = str(work / f"{name}_train.pth")
+    t0 = time.perf_counter()
+    cli = det2d_train.main(common + ["--checkpoint", ckpt, "--steps", str(DET2D_CLI_STEPS),
+                                     "--log-every", "1", "--out", pth])
+    cli_s = time.perf_counter() - t0
+    ev = det2d_evaluate.main(common[:5] + ["--checkpoint", pth])
+    trained = {k: v.cpu() for k, v in cli.model.state_dict().items()}
+    if not all(torch.equal(ev.engine.model.state_dict()[k].cpu(), v) for k, v in trained.items()):
+        raise AssertionError(f"{name} train CLI: the evaluator's weights are not the trained ones")
+    if not all(np.isfinite(m["loss"]) for m in cli.metrics) or not all(
+            np.isfinite(v) for v in ev.metrics.values()):
+        raise AssertionError(f"{name} train CLI: {cli.metrics} / {ev.metrics}")
+    out["cli"] = dict(losses=[m["loss"] for m in cli.metrics], seconds=cli_s,
+                      num_pos=[m["num_pos"] for m in cli.metrics], eval_metrics=ev.metrics)
+    log(f"{name} train CLI (augmented): {DET2D_CLI_STEPS} steps in {cli_s:.1f} s, losses "
+        f"{[round(m['loss'], 4) for m in cli.metrics]}; tools/det2d/evaluate.py --checkpoint "
+        f"reads the .pth (mAP {ev.metrics['mAP']:.4f})")
+    del cli, ev
+    torch.cuda.empty_cache()
+
+    reset_launch_counts()
+    qat = det2d_train.main(common + ["--checkpoint", ckpt, "--quant-scales", scales, "--no-augment",
+                                     "--steps", str(DET2D_QAT_STEPS), "--log-every", "1",
+                                     "--out", str(work / f"{name}_qat.pth")])
+    qat_counts = launch_counts()
+    if qat.model.cfg.quant is not True or not all(np.isfinite(m["loss"]) for m in qat.metrics):
+        raise AssertionError(f"{name} QAT: {qat.metrics}")
+    want = counts_of(dcn_im2col=3 * DET2D_QAT_STEPS) if centernet else counts_of()
+    if qat_counts != want:
+        raise AssertionError(f"{name} QAT: expected launches {want}, got {qat_counts}")
+    out["qat"] = dict(losses=[m["loss"] for m in qat.metrics], sites=len(qdq_sites(qat.model)),
+                      launches=dict(zip(COUNT_NAMES, qat_counts)))
+    log(f"{name} QAT on {card}: {DET2D_QAT_STEPS} steps from the 2D phase's `max` scales "
+        f"({out['qat']['sites']} sites), losses {[round(x, 4) for x in out['qat']['losses']]}; "
+        f"launches {out['qat']['launches']}")
+    del qat
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_det2d_train(card, dev, work, models=("yolox_x", "centernet_r18")):
+    """YOLOX-x and CenterNet-R18 training at 640 px, batch 8, float32, on
+    the 2D phase's generated set, checkpoints and scales
+    (`det2d_train_model`)."""
+    root = work / "coco"
+    ann, img_root = str(root / "instances_synthetic.json"), str(root / "images")
+    return {name: det2d_train_model(card, dev, name, ann, img_root, work) for name in models}
 
 
 SERVING_SCENES = 6  # tiny: 6 scenes x 3 frames over 4 slots, batch 4
@@ -3212,6 +3429,9 @@ def main(argv=None):
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuBLAS under `deterministic()`: 8 workspaces of 4096 KiB, the size
+    # PyTorch gives sm_90 when the variable is unset
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     t_start = time.perf_counter()
     build_logs = _cuda.build(verbose=True)
@@ -3271,6 +3491,7 @@ def main(argv=None):
             ("bevdet", lambda: phase_bevdet(card, dev, gen, root, work)),
             ("bevdet_train", lambda: phase_bevdet_train(card, root, work)),
             ("det2d", lambda: phase_det2d(card, dev, gen, work)),
+            ("det2d_train", lambda: phase_det2d_train(card, dev, work)),
             ("serving", lambda: phase_serving(card)),
             ("export", lambda: phase_export(card, root, work))):
         t0 = time.perf_counter()
@@ -3405,6 +3626,13 @@ def main(argv=None):
                    "tool",
             "shapes": rows})
     add_det2d(kernels, res["det2d"])
+    im2col = next(k for k in kernels if k["name"] == "dcn_im2col")
+    ct_train = res["det2d_train"]["centernet_r18"]
+    im2col["centernet_r18_train_launches"] = ct_train["overfit"]["launches"]["dcn_im2col"]
+    im2col["centernet_r18_train_launches_per_step"] = (
+        ct_train["kernel_vs_plain"]["launches"]["dcn_im2col"])
+    im2col["per"] += ("; centernet_r18_train_launches over the det2d_train phase's "
+                      f"{DET2D_OVERFIT_STEPS} overfit steps of CenterNet-R18 at batch 8")
     serving, exported = res["serving"], res["export"]
     for k in kernels:  # a serving step's launches, and each reloaded program's
         counter = ENTRY_COUNTERS.get(k["name"], k["name"])
@@ -3419,7 +3647,8 @@ def main(argv=None):
                                          or k.get("small_launches", 1) < 1
                                          or k.get("bevdet_launches", 1) < 1
                                          or k.get("centernet_r18_launches", 1) < 1
-                                         or k.get("yolox_x_launches", 1) < 1):
+                                         or k.get("yolox_x_launches", 1) < 1
+                                         or k.get("centernet_r18_train_launches", 1) < 1):
             raise AssertionError(f"kernel {k['name']} was not launched on the main path")
     res["kernels"] = kernels
     if args.out:

@@ -90,7 +90,9 @@ def test_port_imports_no_jax():
                    "models.detectors.centernet", "core.nms2d", "data.coco", "evalsuite.coco_map",
                    "runtime.det2d_engine", "tools.det2d.evaluate", "tools.det2d.calibrate",
                    "runtime.serving", "runtime.export", "tools.serving_bench", "tools.export",
-                   "tools.bevdet.export", "tools.det2d.export"):
+                   "tools.bevdet.export", "tools.det2d.export", "data.transforms2d",
+                   "train.losses2d", "tools.det2d.train", "ops.grid_sample", "ops.inverse",
+                   "ops.voxel"):
         assert os.path.exists(os.path.join(REPO, "bevformer_tensorrt_tpu_torch",
                                            *module.split(".")) + ".py"), module
 
@@ -394,7 +396,7 @@ def test_library_name_hashes_the_sources_it_includes(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("tool", ["bevdet.evaluate", "bevdet.calibrate", "accuracy_cycle",
                                   "bevdet.train", "accuracy_cycle_family", "det2d.evaluate",
-                                  "det2d.calibrate"])
+                                  "det2d.calibrate", "det2d.train"])
 def test_new_clis_default_to_cuda(tool, tmp_path, monkeypatch):
     """The BEVDet and 2D CLIs and the accuracy cycles run on CUDA unless
     `--device cpu` is given: without a card they raise before any work."""
