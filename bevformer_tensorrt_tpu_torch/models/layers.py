@@ -14,6 +14,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import int8_matmul as int8_ops
+from ..parallel import comm
 from ..quant.fake_quant import fake_quant, per_channel_scale
 from ..quant.fold import int8_weight_matrix, quantize_weight
 from ..quant.policy import effective_quant
@@ -48,7 +49,9 @@ class _QuantSite(OptionalBuffers):
                (`quant.fold.int8_weight_matrix`), kept beside the folded
                `wq` and dropped with it or when a state_dict is loaded.
     `mode` is `quant` resolved under the model's policy
-    (`quant.policy.set_quant_exclude`); an excluded layer runs plain."""
+    (`quant.policy.set_quant_exclude`); an excluded layer runs plain.
+    `tp` is set by `parallel.sharding.shard_parameters` on a dense layer
+    that holds a column- or row-parallel slice of its weight."""
 
     OPTIONAL = ("wq", "wscale")
 
@@ -63,6 +66,17 @@ class _QuantSite(OptionalBuffers):
         self.register_buffer("wq", None)
         self.register_buffer("wscale", None)
         self.register_buffer("wmat", None, persistent=False)
+        self.tp = None
+
+    def _row_parallel(self) -> bool:
+        return self.tp is not None and self.tp.mode == "row"
+
+    def _row_amax(self, amax):
+        """A row-parallel slice holds part of every output channel's row:
+        the channel's amax is the largest over the axis."""
+        if self._row_parallel():
+            amax = comm.all_reduce(amax.detach().clone(), self.tp.mesh, self.tp.axis, op="max")
+        return amax
 
     def resolve_quant(self, path, exclude) -> None:
         self.path = tuple(path)
@@ -87,11 +101,14 @@ class _QuantSite(OptionalBuffers):
             if self.wmat is None:
                 self.wmat = int8_weight_matrix(self.wq)
             return self.wmat, self.wscale
-        wq, wscale = quantize_weight(self.weight)
+        amax = None
+        if self._row_parallel():
+            amax = self._row_amax(self.weight.detach().float().abs().amax(dim=1))
+        wq, wscale = quantize_weight(self.weight, amax=amax)
         return int8_weight_matrix(wq), wscale
 
     def _fake_quant_weight(self):
-        return fake_quant(self.weight, per_channel_scale(self.weight, axis=0))
+        return fake_quant(self.weight, self._row_amax(per_channel_scale(self.weight, axis=0)))
 
 
 def _quantize_input(x, s_in):
@@ -106,6 +123,11 @@ class QDense(nn.Linear, _QuantSite):
         self._init_quant(quant)
 
     def forward(self, x):
+        """Column-parallel, the input passes Megatron's f; row-parallel, the
+        partial products are all-reduced (g) and the bias added once after."""
+        tp, row = self.tp, self._row_parallel()
+        if tp is not None and tp.mode == "col":
+            x = comm.copy_to(x, tp.mesh, tp.axis)
         weight = self.weight
         if self.mode:
             x_scaled, s_in = self.qdq_in(x)
@@ -116,12 +138,17 @@ class QDense(nn.Linear, _QuantSite):
                 if wmat.shape[1] > self.in_features:  # zero columns add nothing
                     xq = F.pad(xq, (0, wmat.shape[1] - self.in_features))
                 y = int8_ops.int8_matmul(xq, wmat, s_in, wscale)
+                if row:
+                    y = comm.reduce_from(y, tp.mesh, tp.axis)
                 if self.bias is not None:
                     y = y + self.bias
                 return y.reshape(*x.shape[:-1], self.out_features).to(x.dtype)
             x = x_scaled
             weight = self._fake_quant_weight()
         b = None if self.bias is None else self.bias.to(x.dtype)
+        if row:
+            y = comm.reduce_from(F.linear(x, weight.to(x.dtype)), tp.mesh, tp.axis)
+            return y if b is None else y + b
         return F.linear(x, weight.to(x.dtype), b)
 
 
@@ -218,6 +245,8 @@ class FrozenBN(nn.Module):
 
 class FFN(nn.Module):
     """fc1 -> relu -> fc2 with residual add."""
+
+    TP_LAYERS = ("fc1", "fc2")  # column- then row-parallel (parallel/sharding.py)
 
     def __init__(self, embed_dims: int, feedforward_channels: int, quant=False):
         super().__init__()

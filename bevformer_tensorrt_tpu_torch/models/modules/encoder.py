@@ -6,6 +6,15 @@ The per-layer `use_prev_bev` mux is arithmetic, not a branch:
 `mux * prev + (1 - mux) * [q, q]`.  The TPU's sigma sort of each camera's
 compacted queries only speeds up the TPU kernel and is left out: the
 index-add at `topi` puts every query back in its slot whatever the order.
+
+Sequence parallelism (port of the JAX encoder's `shard_bev_queries` hooks):
+under `parallel.ops.set_mesh`, each tp rank runs every layer on its nq / tp
+rows of the BEV grid and the layer's output is all-gathered, which is the
+identity where no mesh is set or the rows do not divide.  Two readers cross
+the query axis and take the gathered grid: temporal self-attention's history
+(on a first frame the mux puts the current layer input there) and the
+spatial cross-attention's per-camera compaction, made once over the whole
+grid, of which each rank keeps the entries that land in its rows.
 """
 from __future__ import annotations
 
@@ -16,11 +25,13 @@ import torch
 import torch.nn as nn
 
 from ...configs.bevformer import BEVFormerConfig
+from ...parallel import ops as sp_ops
 from ..layers import FFN, LayerNorm
 from .attention import (
     SpatialCrossAttention,
     TemporalSelfAttention,
     camera_compaction,
+    compaction_rows,
     compaction_size,
 )
 
@@ -122,9 +133,12 @@ class BEVFormerLayer(nn.Module):
         self.norm3 = LayerNorm(C)
 
     def forward(self, query, value, bev_pos, hybrid_ref_2d, reference_points_cam, bev_mask,
-                spatial_shapes, prev_bev, compaction=None):
+                spatial_shapes, prev_bev, compaction=None, prev_q=None):
+        """`prev_q` [2, nq, C]: the history rows aligned with `query` where
+        it is a share of the grid's rows (`TemporalSelfAttention`'s value_q)."""
         identity = query
-        query = self.self_attn(query, prev_bev, identity, bev_pos, hybrid_ref_2d, self.bev_shape)
+        query = self.self_attn(query, prev_bev, identity, bev_pos, hybrid_ref_2d, self.bev_shape,
+                               value_q=prev_q)
         query = self.norm1(query)
         identity = query
         query = self.cross_attn(query, value, identity, None, reference_points_cam, bev_mask,
@@ -152,10 +166,20 @@ class BEVFormerEncoder(nn.Module):
         prev_queue = torch.cat([prev_bev, bev_query], dim=0)  # [2, nq, C]
         output = bev_query
         mux = use_prev_bev.to(output.dtype)
+        nq = bev_query.shape[1]
+        rows = sp_ops.sequence_rows(nq)
+        if rows.stop - rows.start < nq:  # this tp rank's share of the grid
+            if self.layer0.self_attn.value_proj.tp is not None:
+                raise ValueError("sequence parallelism runs on the tp ranks' rows with the "
+                                 "transformer's parameters whole, not tensor-parallel")
+            compaction = (False if compaction is None
+                          else compaction_rows(compaction, rows.start, rows.stop))
+        bev_pos, hybrid_ref_2d = bev_pos[:, rows], hybrid_ref_2d[:, rows]
+        reference_points_cam, bev_mask = reference_points_cam[:, rows], bev_mask[:, rows]
         for i in range(self.cfg.encoder_layers):
             cur_stack = torch.cat([output, output], dim=0)
             layer_prev = mux * prev_queue.to(output.dtype) + (1 - mux) * cur_stack
-            output = getattr(self, f"layer{i}")(
-                output, value, bev_pos, hybrid_ref_2d, reference_points_cam, bev_mask,
-                spatial_shapes, layer_prev, compaction)
+            output = sp_ops.gather_bev_queries(getattr(self, f"layer{i}")(
+                output[:, rows], value, bev_pos, hybrid_ref_2d, reference_points_cam, bev_mask,
+                spatial_shapes, layer_prev, compaction, prev_q=layer_prev[:, rows]), nq)
         return output

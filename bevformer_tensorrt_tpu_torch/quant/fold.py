@@ -20,13 +20,17 @@ from ..ops.int8_matmul import K_ALIGN
 from .qdq import QDQ
 
 
-def quantize_weight(weight: torch.Tensor):
+def quantize_weight(weight: torch.Tensor, amax=None):
     """Per-output-channel int8 weight of a dense [out, in] or conv OIHW
-    weight: (wq int8 of the same shape, wscale [out] float32)."""
+    weight: (wq int8 of the same shape, wscale [out] float32).  `amax`
+    [out] replaces the channels' own (a row-parallel slice takes the whole
+    row's)."""
     w = weight.detach().float()
+    if amax is None:
+        amax = w.abs().amax(dim=tuple(range(1, w.dim())))
     # a 0-dim divisor: CUDA divides a tensor by a Python number as a product
     # with its reciprocal, one ulp off the CPU's and the JAX package's scale
-    wscale = w.abs().amax(dim=tuple(range(1, w.dim()))) / w.new_full((), 127.0) + 1e-12
+    wscale = amax / w.new_full((), 127.0) + 1e-12
     shape = (-1,) + (1,) * (w.dim() - 1)
     wq = torch.round(w / wscale.reshape(shape)).clamp(-127, 127).to(torch.int8)
     return wq, wscale

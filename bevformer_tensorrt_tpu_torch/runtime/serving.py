@@ -17,8 +17,12 @@ This engine serves many scenes on one card:
     the lanes' prev_bev from the pool and writes the new bev_embed back in
     place (`index_copy_`), so the recurrent state never leaves the device.
 
-The JAX engine's `mesh` (data-parallel lanes over a device mesh) is left
-out: the port runs on one card.
+With `mesh` (`parallel.make_mesh`), the B lanes are split over the dp
+ranks, as the JAX engine shards its frame axis over dp: every rank runs the
+same scheduler on the same requests, runs its B / dp lanes, and all-gathers
+the lanes' outputs, so each rank writes every lane's new row into its
+replicated pool and its `step()` returns what the one-process engine
+returns.  The tp ranks of a dp group run the same lanes.
 """
 from __future__ import annotations
 
@@ -31,6 +35,8 @@ import torch
 
 from ..configs.bevformer import BEVFormerConfig
 from ..models.detectors.bevformer import BEVFormer
+from ..parallel import comm
+from ..parallel.mesh import batch_sharding
 from .engine import TemporalState, place_model, resolve_device
 
 
@@ -55,11 +61,14 @@ class ContinuousBatchingEngine:
     """Batched recurrent inference over a pool of scene slots.  The model is
     made as `BEVFormerEngine` makes it: `model`, or a seeded `BEVFormer(cfg)`,
     with `state_dict` loaded strictly when given; on CUDA unless `device`
-    says otherwise."""
+    says otherwise.  `mesh`: the lanes' data-parallel split (the batch must
+    divide over dp)."""
 
     def __init__(self, cfg: BEVFormerConfig, model: Optional[BEVFormer] = None,
                  state_dict=None, device=None, seed: int = 0, max_scenes: int = 16,
-                 batch: int = 4):
+                 batch: int = 4, mesh=None):
+        self.mesh = mesh
+        self.lanes = slice(0, batch) if mesh is None else batch_sharding(mesh, batch)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = place_model(cfg, model, state_dict, self.device, seed)
@@ -133,12 +142,15 @@ class ContinuousBatchingEngine:
             cbs[i] = delta_cb
             l2is[i] = np.asarray(r.lidar2img, np.float32).reshape(cfg.num_cams, 4, 4)
             images[i] = np.asarray(r.image, np.float32).reshape(images.shape[1:])
-        dev = self.device
+        dev, mine = self.device, self.lanes
         slots = torch.from_numpy(slot_ids).to(dev)
         bev, classes, coords = self.model.forward_lanes(
-            self._images.to(dev, non_blocking=True), self.pool.index_select(0, slots),
-            torch.from_numpy(use_prev).to(dev), torch.from_numpy(cbs).to(dev),
-            torch.from_numpy(l2is).to(dev))
+            self._images[mine].to(dev, non_blocking=True),
+            self.pool.index_select(0, slots[mine]), torch.from_numpy(use_prev[mine]).to(dev),
+            torch.from_numpy(cbs[mine]).to(dev), torch.from_numpy(l2is[mine]).to(dev))
+        if self.mesh is not None:  # every lane's rows on every rank
+            bev, classes, coords = (comm.all_gather(t, self.mesh, "dp", 0)
+                                    for t in (bev, classes, coords))
         # live lanes hold distinct slots; padded lanes all write the scratch
         # slot, where the order does not matter
         self.pool.index_copy_(0, slots, bev)

@@ -4,7 +4,7 @@
     python -m bevformer_tensorrt_tpu_torch.tools.evaluate tiny --infos <infos.pkl>
         [--data-root DIR] [--checkpoint upstream.pth] [--dtype bfloat16]
         [--quant-scales scales.npz [--quant int8] [--quant-exclude PATTERN ...]]
-        [--limit N] [--cam-budget 1.0] [--device cuda]
+        [--limit N] [--cam-budget 1.0] [--device cuda] [--distributed [--partial-dir DIR]]
 
 The loader (`data/nuscenes.py`) feeds `BEVFormerEngine`, the NMS-free
 decode follows, then `evaluate_nuscenes`.  The last line of stdout is one
@@ -14,27 +14,41 @@ and last frames' latencies dropped, the reference's convention).
 `--checkpoint` is an upstream-layout state_dict (`.pth`); without it the
 weights are seeded.  `--quant-scales` is a `CalibrationResult` `.npz` from
 `tools/calibrate.py`, with its `.policy.json` beside it.  Left out (the JAX
-CLI has them): `--distributed` and `--partial-dir` (multi-host evaluation,
-which waits for the port of `parallel/`), and `--knobs` (autotuned Mosaic
-knobs; the port's kernels pick their geometry by rule).  Runs on CUDA
-unless `--device cpu` is given.
+CLI has it): `--knobs` (autotuned Mosaic knobs; the port's kernels pick
+their geometry by rule).  Runs on CUDA unless `--device cpu` is given.
+
+`--distributed` (or torchrun's variables in the environment) evaluates over
+the job torchrun describes: whole scenes a rank (`scene_group_shards`; the
+recurrent prev_bev never crosses ranks), each rank on `cuda:LOCAL_RANK`.
+Each rank writes `eval_partial_<rank>.pkl` under
+`<--partial-dir, default beside --infos>/partials_<MASTER_ADDR>_<MASTER_PORT>`
+and waits at a barrier of a gloo group (host coordination: no NCCL
+communicator is made, so ranks may share a card); rank 0 merges the
+partials and prints the metrics (fps and latency from its own frames).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
+import pickle
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, List, Sequence
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch.distributed as dist
 
 from ..configs import bevformer as configs
 from ..core.nms_free_coder import NMSFreeCoder
 from ..data.nuscenes import IMG_NORM_CAFFE, IMG_NORM_PYTORCH, NuScenesFrames
+from ..data.sampler import scene_group_shards
 from ..evalsuite import detections_to_eval_boxes, evaluate_nuscenes, gt_to_eval_boxes
+from ..parallel import init_distributed
+from ..parallel.mesh import in_torchrun
 from ..quant.fold import attach_quant_scales
 from ..quant.observers import CalibrationResult
 from ..quant.policy import load_policy
@@ -132,6 +146,28 @@ def eval_loop(engine: BEVFormerEngine, frames: NuScenesFrames, indices: Sequence
     return run
 
 
+def merge_partials(run: EvalRun, partial_dir: str, infos: str) -> Optional[EvalRun]:
+    """Write this rank's boxes under the run's partials directory, wait at
+    a gloo barrier, and on rank 0 return the run with every rank's boxes
+    (rank order; the latencies rank 0's); None on the other ranks."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    ns = f"{os.environ['MASTER_ADDR']}_{os.environ['MASTER_PORT']}".replace("/", "_")
+    pdir = Path(partial_dir or Path(infos).parent) / f"partials_{ns}"
+    pdir.mkdir(parents=True, exist_ok=True)
+    with open(pdir / f"eval_partial_{rank}.pkl", "wb") as fh:
+        pickle.dump({"gt": run.gt_boxes, "pred": run.pred_boxes}, fh)
+    dist.barrier(group=dist.new_group(backend="gloo"))
+    if rank != 0:
+        return None
+    merged = EvalRun(latencies=run.latencies)
+    for r in range(world):
+        with open(pdir / f"eval_partial_{r}.pkl", "rb") as fh:
+            part = pickle.load(fh)
+        merged.gt_boxes += part["gt"]
+        merged.pred_boxes += part["pred"]
+    return merged
+
+
 @dataclasses.dataclass
 class EvalResult:
     metrics: Dict[str, float]
@@ -146,7 +182,7 @@ def main(argv=None) -> EvalResult:
     returned for callers that drive the tool from Python."""
     ap = argparse.ArgumentParser(
         description=__doc__.splitlines()[0],
-        epilog="Not ported from the JAX CLI: --distributed, --partial-dir, --knobs.")
+        epilog="Not ported from the JAX CLI: --knobs.")
     ap.add_argument("model", choices=MODELS)
     ap.add_argument("--infos", required=True)
     ap.add_argument("--data-root", default=None)
@@ -164,7 +200,17 @@ def main(argv=None) -> EvalResult:
     ap.add_argument("--cam-budget", type=float, default=1.0,
                     help="fraction of BEV queries kept per camera (1.0 = exact)")
     ap.add_argument("--device", default=None, help="default: cuda (raises without one)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="scene-sharded evaluation over the job torchrun describes (also "
+                         "implied by its variables); rank 0 merges the partial boxes")
+    ap.add_argument("--partial-dir", default=None,
+                    help="shared directory for the ranks' partial results (default: beside "
+                         "--infos)")
     args = ap.parse_args(argv)
+    distributed = args.distributed or in_torchrun()
+    device = args.device
+    if distributed:
+        device, _, _ = init_distributed(args.device)
 
     quant, exclude = False, ()
     if args.quant_scales:
@@ -176,14 +222,24 @@ def main(argv=None) -> EvalResult:
     cfg = getattr(configs, f"bevformer_{args.model}")(
         dtype=args.dtype, quant=quant, cam_budget=args.cam_budget, quant_exclude=exclude)
     state_dict = checkpoint_state_dict(cfg, args.checkpoint) if args.checkpoint else None
-    engine = BEVFormerEngine(cfg, state_dict=state_dict, device=args.device)
+    engine = BEVFormerEngine(cfg, state_dict=state_dict, device=device)
     if args.quant_scales:
         attach_quant_scales(engine.model, CalibrationResult.load(args.quant_scales).scales)
     frames = NuScenesFrames(args.infos, args.data_root, img_norm=image_norm(args.model),
                             target_hw=(cfg.img_h, cfg.img_w))
-    indices = list(range(len(frames)))[:args.limit]
+    indices = list(range(len(frames)))
+    if distributed:  # whole scenes a rank, timestamp order within each
+        tokens = [e.get("scene_token", "") for e in frames.infos]
+        indices = scene_group_shards(tokens, dist.get_world_size())[dist.get_rank()]
+    indices = indices[:args.limit]
 
     run = eval_loop(engine, frames, indices)
+    if distributed:
+        merged = merge_partials(run, args.partial_dir, args.infos)
+        dist.destroy_process_group()
+        if merged is None:
+            return EvalResult({}, run, engine, frames, indices)
+        run = merged
     metrics = run.metrics()
     print(json.dumps({k: round(float(v), 4) for k, v in metrics.items()}))
     return EvalResult(metrics, run, engine, frames, indices)

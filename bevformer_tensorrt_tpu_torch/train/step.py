@@ -28,6 +28,14 @@ output channel from the live weight, and gradients pass by the
 straight-through rule.  `check_quant_scales` refuses a quantized model with a
 live site that has no scale, where "QAT" would silently train floating point;
 a step runs it on an optimizer's first step (the scales are fixed after).
+
+Data parallelism (`mesh` with a dp axis; `parallel/`): each dp rank takes
+its share of the global batch, the positive count is summed over dp before
+it divides (the reference's `sync_cls_avg_factor`), and the gradients are
+summed over dp in one all-reduce, so a dp step is the one-process step on
+the global batch.  Under tensor parallelism (`parallel.shard_parameters`)
+the optimizer's global norm counts each shard once and each replicated
+parameter once.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ import torch.nn as nn
 
 from ..configs.bevformer import BEVFormerConfig
 from ..models.detectors.bevformer import BEVFormer
+from ..parallel import comm
 from ..quant.calibrate import qdq_sites
 from ..weights import init_weights
 from .assigner import assign_levels
@@ -104,9 +113,11 @@ def bevformer_detr_loss(outputs_classes, outputs_coords, gt_boxes, gt_labels,
                               num_classes)
 
 
-def _normalized_loss(outputs, batch, num_classes: int) -> Tuple[torch.Tensor, Dict]:
+def _normalized_loss(outputs, batch, num_classes: int, mesh=None) -> Tuple[torch.Tensor, Dict]:
     """The samples' DETR losses from their (classes, coords), matched in one
-    host round trip, summed and divided by max(sum of num_pos, 1)."""
+    host round trip, summed and divided by max(sum of num_pos, 1), the sum
+    taken over the dp ranks' samples under `mesh`.  The metrics are the
+    global batch's."""
     gt_boxes, gt_labels = batch["gt_boxes"], batch["gt_labels"]
     codes = [normalize_bbox(gt_boxes[b]) for b in range(len(outputs))]
     costs = torch.stack([match_costs(c, o, codes[b], gt_labels[b])
@@ -114,11 +125,17 @@ def _normalized_loss(outputs, batch, num_classes: int) -> Tuple[torch.Tensor, Di
     row2col = assign_levels(costs, gt_labels >= 0)
     parts = [detr_loss_assigned(c, o, codes[b], gt_labels[b], row2col[b], num_classes)
              for b, (c, o) in enumerate(outputs)]
-    num_pos = torch.clamp_min(sum(p["num_pos"] for p in parts), 1.0)
+    num_pos = sum(p["num_pos"] for p in parts)
+    if mesh is not None:
+        num_pos = comm.all_reduce(num_pos.detach().clone(), mesh, "dp")
+    num_pos = torch.clamp_min(num_pos, 1.0)
     cls = sum(p["cls_sum"] for p in parts) / num_pos
     bbox = sum(p["bbox_sum"] for p in parts) / num_pos
     loss = cls + bbox
-    return loss, {"loss": loss.detach(), "loss_cls": cls.detach(), "loss_bbox": bbox.detach(),
+    parts = torch.stack([cls.detach(), bbox.detach()])
+    if mesh is not None:
+        parts = comm.all_reduce(parts, mesh, "dp")
+    return loss, {"loss": parts.sum(), "loss_cls": parts[0], "loss_bbox": parts[1],
                   "num_pos": num_pos, "row2col": row2col}
 
 
@@ -128,7 +145,7 @@ def _zero_bev(model: BEVFormer, device) -> torch.Tensor:
                        device=device)
 
 
-def loss_fn(model: BEVFormer, batch) -> Tuple[torch.Tensor, Dict]:
+def loss_fn(model: BEVFormer, batch, mesh=None) -> Tuple[torch.Tensor, Dict]:
     """Single-frame loss (use_prev_bev 0, zero prev_bev), with its metrics."""
     image = batch["image"]
     outputs = []
@@ -136,10 +153,10 @@ def loss_fn(model: BEVFormer, batch) -> Tuple[torch.Tensor, Dict]:
         _, classes, coords = model(image[b:b + 1], _zero_bev(model, image.device), 0.0,
                                    batch["can_bus"][b], batch["lidar2img"][b])
         outputs.append((classes, coords))
-    return _normalized_loss(outputs, batch, model.cfg.num_classes)
+    return _normalized_loss(outputs, batch, model.cfg.num_classes, mesh)
 
 
-def temporal_loss_fn(model: BEVFormer, batch) -> Tuple[torch.Tensor, Dict]:
+def temporal_loss_fn(model: BEVFormer, batch, mesh=None) -> Tuple[torch.Tensor, Dict]:
     """Temporal-queue loss (the reference's forward_train with
     obtain_history_bev): the first T-1 frames of each clip run without
     gradients to build prev_bev (use_prev_bev 0, then 1); the last frame
@@ -157,7 +174,7 @@ def temporal_loss_fn(model: BEVFormer, batch) -> Tuple[torch.Tensor, Dict]:
         _, classes, coords = model(image[b, T - 1][None], prev_bev, use_prev,
                                    batch["can_bus"][b, T - 1], batch["lidar2img"][b, T - 1])
         outputs.append((classes, coords))
-    return _normalized_loss(outputs, batch, model.cfg.num_classes)
+    return _normalized_loss(outputs, batch, model.cfg.num_classes, mesh)
 
 
 def warmup_cosine(count: int, peak: float, warmup: int, total: int,
@@ -186,6 +203,9 @@ class Optimizer:
     - parameters named `img_backbone.*` take `backbone_lr_mult` x the whole
       update (BEVDet's recipe passes 1.0: one rate for every parameter).
     A parameter that got no gradient is updated as with a zero gradient.
+    With `mesh` and the specs of `parallel.shard_parameters`, the global
+    norm sums the tp-sharded parameters' squares over tp (each shard once)
+    and takes the replicated ones as they are (each once).
     Without `total_steps` the rate is constant.  The update is written out
     with in-place foreach ops rather than taken from `torch.optim`: it moves
     every parameter's version, on which `DeformConv2d` keys its kept weight
@@ -196,12 +216,15 @@ class Optimizer:
     def __init__(self, model: nn.Module, learning_rate: float = 2e-4,
                  weight_decay: float = 0.01, backbone_lr_mult: float = 0.1,
                  total_steps: Optional[int] = None, warmup_steps: int = 500,
-                 grad_clip: float = 35.0, end_fraction: float = 1e-3):
+                 grad_clip: float = 35.0, end_fraction: float = 1e-3, mesh=None, specs=None):
         head, backbone = [], []
         for name, p in model.named_parameters():
             (backbone if "img_backbone" in name.split(".") else head).append(p)
         self.groups = [(g, mult) for g, mult in ((head, 1.0), (backbone, backbone_lr_mult)) if g]
         self.params = head + backbone
+        self.mesh = mesh
+        names = {id(p): n for n, p in model.named_parameters()}
+        self.sharded = [any((specs or {}).get(names[id(p)], ())) for p in self.params]
         self.peak, self.warmup, self.grad_clip = learning_rate, warmup_steps, grad_clip
         self.weight_decay = weight_decay
         self.end_fraction = end_fraction
@@ -222,7 +245,14 @@ class Optimizer:
     @torch.no_grad()
     def step(self) -> None:
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norms = torch.stack(torch._foreach_norm(grads))
+        if any(self.sharded):
+            mask = torch.tensor(self.sharded, device=norms.device)
+            sq = (norms ** 2 * mask).sum()
+            sq = comm.all_reduce(sq, self.mesh, "tp")
+            norm = torch.sqrt(sq + (norms ** 2 * ~mask).sum())
+        else:
+            norm = torch.linalg.vector_norm(norms)
         scale = torch.where(norm < self.grad_clip, torch.ones_like(norm), self.grad_clip / norm)
         torch._foreach_mul_(grads, scale)
         torch._foreach_lerp_(self.mu, grads, 1 - self.B1)
@@ -256,27 +286,40 @@ def check_quant_scales(model: nn.Module) -> None:
             "quant.fold.attach_quant_scales, or exclude the sites in the policy")
 
 
-def _step(fn, model: BEVFormer, optimizer: Optimizer, batch) -> Dict:
+def sum_gradients(params, mesh, axis: str = "dp") -> None:
+    """Sum the parameters' gradients over the axis in one all-reduce (a
+    parameter without one contributes zeros)."""
+    if mesh is None or mesh.group(axis) is None:
+        return
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+    flat = comm.all_reduce(torch.cat([g.reshape(-1) for g in grads]), mesh, axis)
+    for p, g in zip(params, flat.split([g.numel() for g in grads])):
+        p.grad = g.view_as(p)
+
+
+def _step(fn, model: BEVFormer, optimizer: Optimizer, batch, mesh=None) -> Dict:
     if optimizer.count == 0:
         check_quant_scales(model)
     optimizer.zero_grad()
-    loss, metrics = fn(model, batch)
+    loss, metrics = fn(model, batch, mesh)
     loss.backward()
+    sum_gradients(optimizer.params, mesh)
     optimizer.step()
     return metrics
 
 
-def train_step(model: BEVFormer, optimizer: Optimizer, batch) -> Dict:
+def train_step(model: BEVFormer, optimizer: Optimizer, batch, mesh=None) -> Dict:
     """One single-frame step: loss, backward, update (QAT for a model built
     with `quant=True`, which `check_quant_scales` checks on the first step).  Returns the metrics
     as device tensors: loss, loss_cls, loss_bbox, num_pos and the matching
-    row2col [B, levels, max_gt]."""
-    return _step(loss_fn, model, optimizer, batch)
+    row2col [B, levels, max_gt].  Under `mesh`, `batch` is this rank's dp
+    share and the metrics are the global batch's."""
+    return _step(loss_fn, model, optimizer, batch, mesh)
 
 
-def temporal_train_step(model: BEVFormer, optimizer: Optimizer, batch) -> Dict:
+def temporal_train_step(model: BEVFormer, optimizer: Optimizer, batch, mesh=None) -> Dict:
     """One temporal-queue step (`temporal_loss_fn`), backward, update."""
-    return _step(temporal_loss_fn, model, optimizer, batch)
+    return _step(temporal_loss_fn, model, optimizer, batch, mesh)
 
 
 def init_train_state(cfg: BEVFormerConfig, device, seed: int = 0,

@@ -192,7 +192,24 @@ Phases (any failure exits non-zero before the result lines):
      interpreter that imports the port alone and run on the card: outputs
      bit for bit the eager module's, each kernel launched as often as in
      the eager forward, CenterNet's two runs bit for bit.
- 21. One JSON line of per-kernel numbers, the nvidia-smi line of the card,
+ 21. The parallel layer (`bevformer_tensorrt_tpu_torch/parallel/`) on the one
+     card.  (a) Spawned ranks (start method spawn) over gloo on cuda:0, NCCL
+     taking no two ranks on one card: at tiny's full width a dp1 x tp2 step
+     on a loader frame with GT under 1e-7 image noise (off the kink of the
+     frame as loaded) against the one-process step, in deterministic mode
+     (the same matching, the loss within 1e-5, each gradient within
+     TRAIN_GRAD_REL_L2 = 3e-3 relative L2; the count within 1e-4 reported);
+     sequence-parallel
+     inference at tp 2 against the one-process forward (max abs 2e-4);
+     serving at dp 2 against the one-process engine (the serving phase's
+     float32 bar); `encoder_pp_forward` and `decoder_pp_forward` at pp 3
+     against the sequential modules at use_prev_bev 1 (max abs 2e-4); the
+     MSDA and flash launches of a forward per rank; which operations gloo
+     staged through host memory.  (b) `tools/train.py --distributed` at
+     world size 1 over NCCL, one step.  (c) `tools/evaluate.py
+     --distributed` as two ranks on the set, rank 0's merged metrics equal
+     to a one-process run of the CLI beside them.  Each part's seconds.
+ 22. One JSON line of per-kernel numbers, the nvidia-smi line of the card,
      and the final `{"ok": true, "device": ...}` line.
 Ahead of phase 10, three phases of their own:
   a. The DCN op from the int8 table (the fused kernel, float32 and
@@ -3308,6 +3325,349 @@ def phase_export(card, root, work):
     return res
 
 
+# --- the parallel phase ----------------------------------------------------------
+# tp 2 against one process, float32 on the card, in PyTorch's deterministic mode:
+# the loss relative; each gradient in the relative L2 norm.  The CPU tests hold
+# the micro step's gradients within 1e-4 (tests/test_torch_parallel_train.py); on
+# the card the tiny step moves further under any float-level perturbation (see
+# `parallel_train`), so each gradient is held within TRAIN_GRAD_REL_L2, the train
+# phase's bar for two float orders of the same step, and the count within 1e-4
+# is reported.
+PARALLEL_LOSS_TOL = 1e-5
+PARALLEL_GRAD_REL_L2 = 1e-4  # reported: the gradients within it are counted
+PARALLEL_SP_TOL = 2e-4  # max |sequence-parallel - one process| (__graft_entry__.py:131-134)
+PARALLEL_PP_TOL = 2e-4  # max |pipelined - sequential|, as the JAX dryrun
+PARALLEL_PP_MICROBATCHES = 5  # tiny's 2500 BEV queries in chunks of 500
+PARALLEL_FRAMES = 3  # the decoder pipeline's frames
+
+
+def _rank_env(rank, world, port):
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+
+
+def _counts_now():
+    return dict(msda=msda_ops.multi_scale_deformable_attn.launches,
+                flash_attn=attn_ops.flash_attention.launches)
+
+
+def _tp_grad_errs(model, specs, mesh, want):
+    """Each gradient's relative L2 distance of the tp rank's shard from the
+    same slice of the one-process gradient `want`."""
+    n, i = mesh.axis_size("tp"), mesh.axis_index("tp")
+    top = max(float(v.abs().max()) for v in want.values())
+    errs = {}
+    for name, p in model.named_parameters():
+        w = want[name]
+        if any(specs[name]):
+            d = specs[name].index("tp")
+            w = w.narrow(d, i * (w.shape[d] // n), w.shape[d] // n)
+        if name.endswith(ZERO_GRADIENT):
+            if not max(float(p.grad.abs().max()), float(w.abs().max())) < 1e-5 * top:
+                raise AssertionError(f"parallel train: {name} has a gradient")
+            continue
+        errs[name] = float((p.grad - w).norm() / w.norm().clamp_min(1e-30))
+    return errs
+
+
+def parallel_train(dev, mesh, root):
+    """A dp1 x tp2 step of tiny (full width) on a loader frame with GT
+    against the one-process step from the same seeded weights, both on the
+    frame under 1e-7 image noise.  The frame as loaded sits on a kink of its
+    gradient: 1e-7 image noise moved the reference points' gradient by 29%
+    and the median gradient by 3.6% (an H100 run of this phase), so it is not
+    used.  Off the kink a second noise seed moved the gradients by up to
+    9.3e-4 (median 1.2e-4) and tp 2 by up to 1.1e-3 (median 3.1e-4): each
+    gradient is held within TRAIN_GRAD_REL_L2 (3e-3), which one rank's share
+    of a gradient (about 0.5) does not pass."""
+    from bevformer_tensorrt_tpu_torch.parallel import shard_parameters
+
+    cfg = bevformer_tiny()
+    frames = set_frames(root, cfg, "tiny")
+    batch = train_cli.to_device(train_cli.frame_batch(
+        [frames.frame(0)], min(train_cli.MAX_GT, cfg.num_query)), dev)
+    g = torch.Generator().manual_seed(1)
+    image = batch["image"] * (1 + IMAGE_NOISE * torch.randn(batch["image"].shape,
+                                                            generator=g).to(dev))
+    batch = dict(batch, image=image)
+
+    with deterministic():
+        one, _ = init_train_state(cfg, dev, seed=0)
+        w_loss, w_rows, w_grads = step_grads(one, batch)
+        del one
+        tp, _ = init_train_state(cfg, dev, seed=0)
+        specs = shard_parameters(tp, mesh)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, m = loss_fn(tp, batch, mesh)
+        loss.backward()
+        _sync(dev)
+        out = dict(n_sharded=sum(bool(any(s)) for s in specs.values()), launches=_counts_now(),
+                   forward_backward_s=time.perf_counter() - t0)
+    if not torch.equal(m["row2col"].cpu(), w_rows):
+        raise AssertionError("parallel train: tp 2 matched other queries")
+    errs = _tp_grad_errs(tp, specs, mesh, w_grads)
+    loss_err = abs(loss.item() - w_loss) / abs(w_loss)
+    over = [(n, e) for n, e in errs.items() if not e <= TRAIN_GRAD_REL_L2]
+    if not loss_err <= PARALLEL_LOSS_TOL or over:
+        raise AssertionError(f"parallel train: loss rel {loss_err:.2e}; gradients over "
+                             f"{TRAIN_GRAD_REL_L2}: {over[:5]}")
+    v = np.array(list(errs.values()))
+    out.update(loss=loss.item(), loss_one=w_loss, loss_rel=loss_err, n_grads=len(errs),
+               grad_rel_l2_max=float(v.max()), grad_rel_l2_median=float(np.median(v)),
+               within_1e4=int((v <= PARALLEL_GRAD_REL_L2).sum()),
+               worst=sorted(errs.items(), key=lambda kv: -kv[1])[:3])
+    return out
+
+
+def parallel_sp(dev, mesh):
+    """Tiny (full width, cam_budget 0.35: the compaction runs) on a first
+    frame, one process against sequence-parallel at tp 2."""
+    from bevformer_tensorrt_tpu_torch.parallel.ops import set_mesh
+
+    cfg = bevformer_tiny()
+    model = init_weights(BEVFormer(cfg), torch.Generator().manual_seed(3)).to(dev).eval()
+    f = synthetic_frames(cfg, np.random.default_rng(3), ["scene-0"])[0]
+    args = (torch.from_numpy(f["image"]).to(dev),
+            torch.zeros(cfg.bev_h * cfg.bev_w, 1, cfg.embed_dims, device=dev), 0.0,
+            torch.from_numpy(f["can_bus"]).to(dev), torch.from_numpy(f["lidar2img"]).to(dev))
+    with torch.no_grad():
+        want = model(*args)
+        reset_launch_counts()
+        with set_mesh(mesh):
+            got = model(*args)
+        _sync(dev)
+    launches = _counts_now()
+    errs = {k: float((a - b).abs().max()) for k, a, b in zip(("bev_embed", "classes", "coords"),
+                                                             got, want)}
+    if not max(errs.values()) < PARALLEL_SP_TOL:
+        raise AssertionError(f"parallel sp: {errs}")
+    return dict(max_abs=errs, launches=launches)
+
+
+def parallel_serving(dev, mesh):
+    """Tiny float32 serving, the lanes split over dp 2, against the
+    one-process engine: 4 scenes x 2 frames at batch 4."""
+    cfg = bevformer_tiny()
+    stream = serving_stream(cfg, 4, 2, seed=4)
+    outs = []
+    for m in (None, mesh):
+        engine = ContinuousBatchingEngine(cfg, device=dev, max_scenes=4, batch=4, mesh=m)
+        for t in range(2):
+            for s in range(4):
+                engine.submit(FrameRequest(scene_id=s, tag=(s, t), **stream[(s, t)]))
+        steps = []
+        while any(engine.queues.values()):
+            steps.append(engine.step())
+        outs.append((steps, engine.pool.clone()))
+        del engine
+    # relative in the max norm, the serving phase's float32 bar for a lane
+    err = 0.0
+    for a, b in zip(outs[0][0], outs[1][0]):
+        if [t for t, _, _ in a] != [t for t, _, _ in b]:
+            raise AssertionError("parallel serving: the dp engine scheduled other frames")
+        err = max([err] + [rel_errors(torch.from_numpy(y[k]), torch.from_numpy(x[k]))["max"]
+                           for x, y in zip(a, b) for k in (1, 2)])
+    pool = rel_errors(outs[1][1], outs[0][1])["max"]
+    if not (err <= F32_MAX_TOL and pool <= F32_MAX_TOL):
+        raise AssertionError(f"parallel serving: lanes {err}, pool {pool}")
+    return dict(steps=len(outs[0][0]), max_rel=err, pool_max_rel=pool)
+
+
+def parallel_pipelines(dev, mesh):
+    """`encoder_pp_forward` over tiny's 3 encoder layers and
+    `decoder_pp_forward` over its 6 decoder layers at pp 3, against the
+    sequential modules at use_prev_bev 1 (cam_budget 1.0)."""
+    from bevformer_tensorrt_tpu_torch.parallel.pp_decoder import decoder_pp_forward, stage_modules
+    from bevformer_tensorrt_tpu_torch.parallel.pp_encoder import encoder_pp_forward, stage_layers
+
+    cfg = bevformer_tiny(cam_budget=1.0)
+    model = init_weights(BEVFormer(cfg), torch.Generator().manual_seed(5)).to(dev).eval()
+    head = model.pts_bbox_head
+    enc, dec = head.transformer.encoder, head.transformer.decoder
+    g = torch.Generator().manual_seed(5)
+    nq, C, hw = cfg.bev_h * cfg.bev_w, cfg.embed_dims, (15, 25)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    rig = torch.from_numpy(synthetic_frames(cfg, np.random.default_rng(5), ["s"])[0]["lidar2img"])
+    a = dict(bev_query=rnd(1, nq, C), value=rnd(cfg.num_cams, hw[0] * hw[1], C),
+             bev_pos=rnd(1, nq, C), lidar2img=rig.to(dev), prev_bev=rnd(1, nq, C),
+             shift=torch.tensor([0.01, -0.02], device=dev))
+    out = {}
+    with torch.no_grad():
+        want = enc(a["bev_query"], a["value"], a["bev_pos"], a["lidar2img"], a["prev_bev"],
+                   a["shift"], torch.ones((), device=dev), (hw,))
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got = encoder_pp_forward(cfg, stage_layers(enc, mesh), a["bev_query"], a["value"],
+                                 a["bev_pos"], a["lidar2img"], a["prev_bev"], a["shift"], (hw,),
+                                 mesh, microbatches=PARALLEL_PP_MICROBATCHES)
+        _sync(dev)
+        out["encoder"] = dict(max_abs=float((got - want).abs().max()),
+                              seconds=time.perf_counter() - t0, launches=_counts_now())
+        query, query_pos = rnd(1, cfg.num_query, C), rnd(1, cfg.num_query, C)
+        values = rnd(PARALLEL_FRAMES, 1, nq, C)
+        ref = torch.sigmoid(rnd(1, cfg.num_query, 3))
+        regs = lambda lid, x: getattr(head, f"reg_branch{lid}")(x)  # noqa: E731
+        want = [dec(query, query_pos, values[f], ref, regs) for f in range(PARALLEL_FRAMES)]
+        layers, stage_regs = stage_modules(dec, head, mesh)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        states, refs = decoder_pp_forward(cfg, layers, stage_regs, query, query_pos, values, ref,
+                                          mesh)
+        _sync(dev)
+        out["decoder"] = dict(
+            max_abs=max(float((states - torch.stack([w[0] for w in want])).abs().max()),
+                        float((refs - torch.stack([w[1] for w in want])).abs().max())),
+            seconds=time.perf_counter() - t0, launches=_counts_now())
+    for part, rec in out.items():
+        if not rec["max_abs"] < PARALLEL_PP_TOL:
+            raise AssertionError(f"parallel pp {part}: {rec}")
+    return out
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def parallel_rank(rank, world, port, tasks, work, root, device="cuda"):
+    """One spawned rank of part (a): gloo on cuda:0 (NCCL takes no two ranks
+    on one card), TF32 off as in `main`, the named tasks in order, each
+    rank's results pickled."""
+    from bevformer_tensorrt_tpu_torch.parallel import comm, init_distributed, make_mesh
+
+    _rank_env(rank, world, port)
+    root = Path(root)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, _, _ = init_distributed(device, backend="gloo")
+    res = {}
+    for task in tasks:
+        t0 = time.perf_counter()
+        if task == "pp":
+            res[task] = parallel_pipelines(dev, make_mesh(dp=1, tp=1, pp=world))
+        elif task == "serving":
+            res[task] = parallel_serving(dev, make_mesh(dp=world, tp=1))
+        elif task == "train":
+            res[task] = parallel_train(dev, make_mesh(dp=1, tp=world), root)
+        else:
+            res[task] = parallel_sp(dev, make_mesh(dp=1, tp=world))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        res[task]["rank_seconds"] = time.perf_counter() - t0
+        log(f"  rank {rank} of {world}: {task} {res[task]}")
+    res["staged_through_host"] = sorted(comm.STAGED)
+    res["collectives"] = comm.counts()
+    (Path(work) / f"parallel_{world}_{rank}.pkl").write_bytes(pickle.dumps(res))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def spawn_parallel(world, tasks, work, root, device="cuda"):
+    import torch.multiprocessing as mp
+
+    from bevformer_tensorrt_tpu_torch.tools.scaling_bench import free_port
+
+    t0 = time.perf_counter()
+    mp.start_processes(parallel_rank,
+                       args=(world, free_port(), tasks, str(work), str(root), device),
+                       nprocs=world, start_method="spawn", join=True)
+    res = [pickle.loads((Path(work) / f"parallel_{world}_{r}.pkl").read_bytes())
+           for r in range(world)]
+    return res, time.perf_counter() - t0
+
+
+def _cli_env(rank, world, port):
+    return dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+
+
+def phase_parallel(card, root, work):
+    """(a) the library path at tiny's full width as spawned gloo ranks on
+    the one card; (b) the train CLI's --distributed at world size 1 over
+    NCCL; (c) the evaluate CLI's --distributed with two ranks on the set,
+    against one process."""
+    from bevformer_tensorrt_tpu_torch.tools.scaling_bench import free_port
+
+    out, seconds = {}, {}
+    two, seconds["tp2_dp2_ranks"] = spawn_parallel(2, ("train", "sp", "serving"), work, root)
+    three, seconds["pp3_ranks"] = spawn_parallel(3, ("pp",), work, root)
+    for task in ("train", "sp", "serving"):
+        out[task] = [r[task] for r in two]
+    out["pp"] = [r["pp"] for r in three]
+    out["staged_through_host"] = sorted(set().union(*(r["staged_through_host"]
+                                                      for r in two + three)))
+    out["collectives_rank0"] = {"tp2/dp2": two[0]["collectives"], "pp3": three[0]["collectives"]}
+    for r, c in enumerate(out["train"]):
+        log(f"parallel train tiny dp1xtp2 rank {r}, frame under {IMAGE_NOISE} noise: loss "
+            f"{c['loss']:.6f} vs one process {c['loss_one']:.6f} (rel {c['loss_rel']:.2e}); "
+            f"gradient rel L2 over {c['n_grads']} ({c['n_sharded']} sharded): max "
+            f"{c['grad_rel_l2_max']:.2e}, median {c['grad_rel_l2_median']:.2e}, "
+            f"{c['within_1e4']} within 1e-4; worst {c['worst']}")
+        log(f"  rank {r}: launches a forward {c['launches']}, forward+backward "
+            f"{c['forward_backward_s']:.2f} s (two ranks share the card)")
+    for r, rec in enumerate(out["sp"]):
+        log(f"parallel sp tiny tp2 rank {r}: max abs {rec['max_abs']}; launches {rec['launches']}")
+    for r, rec in enumerate(out["serving"]):
+        log(f"parallel serving tiny dp2 rank {r}: {rec['steps']} steps, lanes max rel "
+            f"{rec['max_rel']:.2e}, pool {rec['pool_max_rel']:.2e}")
+    for r, rec in enumerate(out["pp"]):
+        log(f"parallel pp3 tiny rank {r}: encoder max abs {rec['encoder']['max_abs']:.2e} "
+            f"({rec['encoder']['seconds']:.2f} s, {PARALLEL_PP_MICROBATCHES} microbatches, "
+            f"launches {rec['encoder']['launches']}), decoder max abs "
+            f"{rec['decoder']['max_abs']:.2e} ({rec['decoder']['seconds']:.2f} s, "
+            f"{PARALLEL_FRAMES} frames, launches {rec['decoder']['launches']})")
+    log(f"parallel: operations staged through host memory under gloo: "
+        f"{out['staged_through_host']}")
+
+    infos = str(root / "nuscenes_infos_synthetic.pkl")
+    t0 = time.perf_counter()
+    train = subprocess.run(
+        [sys.executable, "-m", "bevformer_tensorrt_tpu_torch.tools.train", "tiny", "--infos",
+         infos, "--data-root", str(root), "--steps", "1", "--log-every", "1", "--no-augment",
+         "--out", str(work / "nccl_tiny.pth"), "--distributed"],
+        env=_cli_env(0, 1, free_port()), cwd=str(REPO), capture_output=True, text=True,
+        timeout=300)
+    seconds["train_cli_nccl"] = time.perf_counter() - t0
+    if train.returncode != 0 or "nccl" not in train.stderr:
+        raise AssertionError(f"parallel train CLI over NCCL: {train.stderr[-3000:]}")
+    out["train_cli_nccl"] = [line for line in train.stderr.splitlines()
+                             if line.startswith(("mesh:", "step 0"))]
+    log(f"parallel train CLI --distributed, world 1: {out['train_cli_nccl']}")
+
+    # the one-process run is the same CLI in a process of its own, beside the
+    # two ranks: all three with the CLI's own settings (cuDNN's TF32 among them)
+    t0 = time.perf_counter()
+    port = free_port()
+    cmd = [sys.executable, "-m", "bevformer_tensorrt_tpu_torch.tools.evaluate", "tiny", "--infos",
+           infos, "--data-root", str(root)]
+    procs = [subprocess.Popen([*cmd, "--distributed", "--partial-dir", str(work / "parts")],
+                              env=_cli_env(r, 2, port), cwd=str(REPO), stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    procs.append(subprocess.Popen(cmd, cwd=str(REPO), stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True))
+    outs = [p.communicate(timeout=600) for p in procs]
+    seconds["evaluate_two_ranks_and_one_process"] = time.perf_counter() - t0
+    for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"parallel evaluate process {r}: {e[-3000:]}")
+    two_m, one = (json.loads(outs[k][0].strip().splitlines()[-1]) for k in (0, 2))
+    timing = ("fps", "latency_ms")
+    want = {k: v for k, v in one.items() if k not in timing}
+    got = {k: v for k, v in two_m.items() if k not in timing}
+    if got != want:
+        raise AssertionError(f"parallel evaluate: two ranks {got} against one process {want}")
+    out["evaluate"] = dict(metrics=got, two_ranks_fps=two_m["fps"], one_process_fps=one["fps"])
+    log(f"parallel evaluate tiny --distributed, 2 ranks on one card: merged metrics equal to "
+        f"one process's ({got}); fps {two_m['fps']:.2f} (rank 0's frames) vs {one['fps']:.2f}")
+    out["seconds"] = seconds
+    log(f"parallel on {card}: seconds {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
+    return out
+
+
 def frame_sums(rows, frame, library, extra=(), dtype="float32", key="launches_per_frame"):
     """The `dtype` launches of one `frame` (tiny, base) at the main path's
     shapes, summed: ms per frame.  `extra` names further row keys to sum."""
@@ -3493,7 +3853,8 @@ def main(argv=None):
             ("det2d", lambda: phase_det2d(card, dev, gen, work)),
             ("det2d_train", lambda: phase_det2d_train(card, dev, work)),
             ("serving", lambda: phase_serving(card)),
-            ("export", lambda: phase_export(card, root, work))):
+            ("export", lambda: phase_export(card, root, work)),
+            ("parallel", lambda: phase_parallel(card, root, work))):
         t0 = time.perf_counter()
         res[phase] = fn()
         seconds[phase] = time.perf_counter() - t0
@@ -3642,6 +4003,10 @@ def main(argv=None):
                 for cell, B in (("tiny_float32", 4), ("tiny_bfloat16", 4), ("base_bfloat16", 2))}
         k["export_launches"] = {case: rec["launches"][counter] for case, rec in exported.items()
                                 if isinstance(rec, dict) and counter in rec["launches"]}
+        if counter in ("msda", "flash_attn"):  # a tiny forward on each of 2 tp ranks
+            k["tp2_launches_per_rank"] = [
+                {"train_forward": t["launches"][counter], "sequence_parallel": q["launches"][counter]}
+                for t, q in zip(res["parallel"]["train"], res["parallel"]["sp"])]
     for k in kernels:
         if k.get("main_path", True) and (k["launches"] < 1 or k.get("base_launches", 1) < 1
                                          or k.get("small_launches", 1) < 1

@@ -451,16 +451,19 @@ def test_native_nms_has_no_fallback(tmp_path, monkeypatch):
         native.nms_2d_native(boxes[:, :4], np.array([0.9, 0.8]), 0.5)
 
 
-@pytest.mark.parametrize("tool", ["train", "evaluate"])
-def test_left_out_flags_are_named(tool, capsys):
-    """The BEVFormer train and evaluate CLIs name the JAX CLI's flags they
-    leave out (multi-host `--distributed` among them) in their help."""
+@pytest.mark.parametrize("tool,left_out", [("train", "--msda-impl"), ("evaluate", "--knobs")])
+def test_left_out_flags_are_named(tool, left_out, capsys):
+    """The BEVFormer train and evaluate CLIs accept the JAX CLI's
+    `--distributed` and name the flags they still leave out, and only
+    those, in their help."""
     import importlib
 
     main = importlib.import_module(f"bevformer_tensorrt_tpu_torch.tools.{tool}").main
     with pytest.raises(SystemExit):
         main(["--help"])
-    assert "Not ported from the JAX CLI: --distributed" in capsys.readouterr().out
+    out = " ".join(capsys.readouterr().out.split())
+    assert "--distributed" in out.split("Not ported")[0]
+    assert f"Not ported from the JAX CLI: {left_out}." in out
 
 
 @pytest.mark.parametrize("tool", ["serving_bench", "export", "bevdet.export", "det2d.export"])
