@@ -14,6 +14,8 @@ beside the floating-point model's own NDS.
 
 Every stage is a subprocess of the port's CLIs (`tools.train`,
 `tools.evaluate`, `tools.calibrate`); the generator runs as a subprocess too.
+The stages' processes start together and import while the earlier stages
+run (`Stages`); each still runs only after the one before it has ended.
 A stage that fails ends the cycle with its log's tail.  The record (written
 to `--out` and printed as the last line) has the JAX tool's keys, `fp`
 (bfloat16), `fp32`, `int8_ptq`, `int8_qat`, `nds_drop_ptq`, `nds_drop_qat`,
@@ -38,20 +40,92 @@ REPO = Path(__file__).resolve().parents[2]
 PACKAGE = "bevformer_tensorrt_tpu_torch"
 
 
+def _env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+    return env
+
+
+def _finish(cmd, log: Path, returncode: int) -> str:
+    text = Path(log).read_text()
+    if returncode != 0:
+        raise SystemExit(f"stage failed ({' '.join(map(str, cmd[1:4]))}), exit {returncode}:\n"
+                         f"{text[-3000:]}")
+    return text
+
+
 def run(cmd, log: Path) -> str:
     """Run one stage with its output in `log`; raise with the log's tail if
     it fails."""
     print(f"+ {' '.join(map(str, cmd))}", file=sys.stderr, flush=True)
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO), env.get("PYTHONPATH")) if p)
     with open(log, "w") as f:
         r = subprocess.run(list(map(str, cmd)), stdout=f, stderr=subprocess.STDOUT, cwd=REPO,
-                           env=env)
-    text = Path(log).read_text()
-    if r.returncode != 0:
-        raise SystemExit(f"stage failed ({' '.join(map(str, cmd[1:4]))}), exit {r.returncode}:\n"
-                         f"{text[-3000:]}")
-    return text
+                           env=_env())
+    return _finish(cmd, log, r.returncode)
+
+
+# a stage process started ahead of its turn: it imports its CLI module (and
+# with it torch and the port), then waits on stdin for its arguments and log,
+# and runs the module as `python -m` would
+_WAITING = (
+    "import importlib, json, os, runpy, sys\n"
+    "importlib.import_module(sys.argv[1])\n"
+    "job = sys.stdin.readline()\n"
+    "if not job:\n"
+    "    sys.exit(0)\n"
+    "job = json.loads(job)\n"
+    "fd = os.open(job['log'], os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)\n"
+    "os.dup2(fd, 1)\n"
+    "os.dup2(fd, 2)\n"
+    "sys.argv = [sys.argv[1]] + job['argv']\n"
+    "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n")
+
+
+class Stages:
+    """The cycle's CLI stages as processes started ahead of their turn, each
+    importing its module while the stages before it run, and each released
+    in turn by `run`: every stage is still a process of its own and runs
+    only after the one before it has ended, but the interpreter's start and
+    the imports (most of a micro stage's seconds) overlap the earlier
+    stages.  `modules` lists one entry per stage, in the order `run` takes
+    them; at most `ahead` of them wait at a time (all, by default).  A
+    command that is not `python -m <the next listed module>` runs as a plain
+    subprocess.  Use as a context manager: the processes left waiting are
+    ended at its exit."""
+
+    def __init__(self, modules, ahead: int = 0):
+        self.todo = list(modules)
+        self.ahead = ahead or len(self.todo)
+        self.waiting = []
+        self._fill()
+
+    def _fill(self):
+        while self.todo and len(self.waiting) < self.ahead:
+            m = self.todo.pop(0)
+            self.waiting.append((m, subprocess.Popen(
+                [sys.executable, "-c", _WAITING, m], stdin=subprocess.PIPE, cwd=REPO,
+                env=_env(), text=True)))
+
+    def run(self, cmd, log: Path) -> str:
+        cmd = [str(c) for c in cmd]
+        if not (self.waiting and len(cmd) > 2 and cmd[1] == "-m"
+                and self.waiting[0][0] == cmd[2]):
+            return run(cmd, log)
+        print(f"+ {' '.join(cmd)}", file=sys.stderr, flush=True)
+        _, p = self.waiting.pop(0)
+        self._fill()
+        p.stdin.write(json.dumps({"argv": cmd[3:], "log": str(log)}) + "\n")
+        p.stdin.close()
+        return _finish(cmd, log, p.wait())
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for _, p in self.waiting:
+            p.stdin.close()
+            p.wait()
+        self.waiting, self.todo = [], []
 
 
 def last_json(text: str) -> dict:
@@ -101,7 +175,6 @@ def main(argv=None) -> dict:
     wd.mkdir(parents=True, exist_ok=True)
     synth = wd / "synth"
     infos = synth / "nuscenes_infos_synthetic.pkl"
-    py = sys.executable
     t0 = time.time()
     dev = ["--device", str(device)]
 
@@ -110,8 +183,20 @@ def main(argv=None) -> dict:
     else:
         shape = ["--cams", "6", "--width", "800", "--height", "480"]
     extra = ["--shared-gt"] if args.shared_gt else []
+    with Stages([f"{PACKAGE}.tools.{m}" for m in ("train", "evaluate", "evaluate", "calibrate",
+                                                  "evaluate", "train", "evaluate")]) as st:
+        results = stages(args, st.run, wd, synth, infos, shape + extra, dev)
+    rec = _record(args, device, *results, t0)
+    Path(args.out).write_text(json.dumps(rec, indent=1))
+    print(json.dumps(rec))
+    return rec
+
+
+def stages(args, run, wd: Path, synth: Path, infos: Path, gen_args, dev):
+    """The cycle's stages in turn through `run`: (fp, fp32, ptq, qat) metrics."""
+    py = sys.executable
     run([py, REPO / "tools/make_synthetic_nuscenes.py", synth, "--frames", args.frames,
-         "--seed", args.seed, *shape, *extra], wd / "00_data.log")
+         "--seed", args.seed, *gen_args], wd / "00_data.log")
 
     def tool(name):
         return [py, "-m", f"{PACKAGE}.tools.{name}", args.model, "--infos", infos,
@@ -147,8 +232,11 @@ def main(argv=None) -> dict:
          "0", "--out", qat_ckpt, *dev], wd / "05_qat.log")
     qat = last_json(run([*tool("evaluate"), "--checkpoint", qat_ckpt, *int8],
                         wd / "06_eval_qat_int8.log"))
+    return fp, fp32, ptq, qat
 
-    rec = {
+
+def _record(args, device, fp, fp32, ptq, qat, t0) -> dict:
+    return {
         "model": args.model,
         "seed": args.seed,
         "frames": args.frames,
@@ -168,9 +256,6 @@ def main(argv=None) -> dict:
                               "a synthetic-overfit analogue",
         "wall_s": round(time.time() - t0, 1),
     }
-    Path(args.out).write_text(json.dumps(rec, indent=1))
-    print(json.dumps(rec))
-    return rec
 
 
 if __name__ == "__main__":

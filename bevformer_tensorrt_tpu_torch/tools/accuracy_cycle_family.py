@@ -38,10 +38,10 @@ import time
 from pathlib import Path
 
 from ..runtime.engine import resolve_device
-from .accuracy_cycle import PACKAGE, REPO, device_name, last_json, run
+from .accuracy_cycle import PACKAGE, REPO, Stages, device_name, last_json
 
 
-def cycle_bevdet(args, wd: Path, dev) -> dict:
+def cycle_bevdet(args, wd: Path, dev, run) -> dict:
     py = sys.executable
     synth = wd / "synth"
     infos = synth / "nuscenes_infos_synthetic.pkl"
@@ -79,7 +79,7 @@ def cycle_bevdet(args, wd: Path, dev) -> dict:
     }
 
 
-def cycle_2d(which: str, args, wd: Path, dev) -> dict:
+def cycle_2d(which: str, args, wd: Path, dev, run) -> dict:
     py = sys.executable
     synth = wd / "synth"
     run([py, REPO / "tools/make_synthetic_coco.py", synth, "--images", args.images, "--size", "96",
@@ -142,8 +142,11 @@ def main(argv=None) -> dict:
         wd = root / fam
         wd.mkdir(parents=True, exist_ok=True)
         print(f"=== {fam} cycle ===", file=sys.stderr, flush=True)
-        out[fam] = (cycle_bevdet(args, wd, dev) if fam == "bevdet"
-                    else cycle_2d(fam, args, wd, dev))
+        pkg = f"{PACKAGE}.tools.{'bevdet' if fam == 'bevdet' else 'det2d'}"
+        with Stages([f"{pkg}.{m}" for m in ("train", "evaluate", "calibrate", "evaluate", "train",
+                                            "evaluate")]) as st:
+            out[fam] = (cycle_bevdet(args, wd, dev, st.run) if fam == "bevdet"
+                        else cycle_2d(fam, args, wd, dev, st.run))
         rec = {**out, "steps": args.steps, "qat_steps": args.qat_steps, "seed": args.seed,
                "device": device_name(device), "wall_s": round(time.time() - t0, 1)}
         Path(args.out).write_text(json.dumps(rec, indent=1))

@@ -168,6 +168,13 @@ def host_ms(fn, n=2, repeats=2):
     return float(np.median(out))
 
 
+def call_ms(fn, device, n: int = 20, repeats: int = 5) -> float:
+    """ms a call: `device_ms` on the card, `host_ms` (a rehearsal) on the CPU."""
+    if torch.device(device).type == "cuda":
+        return device_ms(fn, n=n, repeats=repeats)
+    return host_ms(fn, n=max(1, n // 10), repeats=2)
+
+
 def bound(nbytes, flops, dtype, exps=0):
     """(ms, "bytes" or "operations"): the larger of the least times of the
     bytes, of the products at the peak of `dtype` (a dtype or a key of

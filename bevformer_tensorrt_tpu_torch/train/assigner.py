@@ -17,7 +17,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-from scipy.optimize import linear_sum_assignment
 
 
 def hungarian_assign(cost: np.ndarray, valid: Optional[np.ndarray] = None) -> np.ndarray:
@@ -37,6 +36,10 @@ def hungarian_assign(cost: np.ndarray, valid: Optional[np.ndarray] = None) -> np
     rows = np.arange(R) if valid is None else np.flatnonzero(np.asarray(valid, bool))
     row2col = np.full(R, -1, np.int64)
     if len(rows):
+        # imported here: scipy.optimize takes ~2 s to import, which every
+        # process importing the training package (the 2D CLIs too) would pay
+        from scipy.optimize import linear_sum_assignment
+
         r, c = linear_sum_assignment(cost[rows])
         row2col[rows[r]] = c
     pad = np.flatnonzero(row2col < 0)

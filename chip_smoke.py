@@ -84,7 +84,7 @@ Phases (any failure exits non-zero before the result lines):
      pipelined loop's detections bit for bit a serial loop's on the same
      engine; the same frames on the plain versions within the bars of phase
      5; finite metrics; peak device memory.  Then the pipelined and the
-     serial loop timed over the set repeated 10 times (40 frames, every
+     serial loop timed over the set repeated 3 times (12 frames, every
      repeat's detections the first pass's bit for bit), against the
      engine's own frame latency, and the loader's ms a frame (JPEG decodes,
      the native pass, the whole frame).
@@ -209,7 +209,26 @@ Phases (any failure exits non-zero before the result lines):
      world size 1 over NCCL, one step.  (c) `tools/evaluate.py
      --distributed` as two ranks on the set, rank 0's merged metrics equal
      to a one-process run of the CLI beside them.  Each part's seconds.
- 22. One JSON line of per-kernel numbers, the nvidia-smi line of the card,
+ 22. The tools (`bevformer_tensorrt_tpu_torch/tools/`), on the card: (a)
+     `device_op_check` over every case x data mode (normal, wild,
+     nonfinite; `model_int8` with its frame fed back), each case its own
+     process, TOOLS_JOBS (7) side by side: every case ok (normal mode within the
+     tool's tolerances against the plain version, wild mode finite,
+     nonfinite mode without a fault), each case's seconds and launches;
+     beside it (b) `quant_ablation` on a micro workdir made here (a seeded
+     micro `.pth`, 2 generated frames, no training): one method (`max`),
+     the policies `none` and `no_head`, the JAX record's keys, each row's
+     drop its fp NDS less its own.  Then, alone on the card, (c)
+     `msda_capture_repro` at base: the capture run's 12 operand sets, and
+     TSA and SCA layer 0 replayed through the float32, bfloat16 and int8
+     kernels against their plain versions; (d) `opbench` (its table), (e)
+     `flops_params tiny base` (the registry's parameter counts) and (f)
+     `bevpool_ab` at BEVDet-R50's ranks (each variant against a float64
+     splat: float32 within 1e-5 relative, the bfloat16 interval splat 1e-2,
+     the bfloat16 scatter's error recorded).  The in-process tools' launches are
+     counted; with (a)'s they are the phase's `tools_launches` on the
+     kernels line.
+ 23. One JSON line of per-kernel numbers, the nvidia-smi line of the card,
      and the final `{"ok": true, "device": ...}` line.
 Ahead of phase 10, three phases of their own:
   a. The DCN op from the int8 table (the fused kernel, float32 and
@@ -258,6 +277,7 @@ import torch.nn.functional as F
 from bevformer_tensorrt_tpu_torch.configs.bevdet import bevdet_r50
 from bevformer_tensorrt_tpu_torch.configs.bevformer import (
     bevformer_base,
+    bevformer_micro,
     bevformer_small,
     bevformer_tiny,
 )
@@ -1407,10 +1427,10 @@ def phase_small(card):
 
 
 EVAL_FRAMES = 4  # the generated set: 4 frames in 2 scenes
-# The eval loops are timed over the set repeated this many times (40 frames).
+# The eval loops are timed over the set repeated this many times (12 frames).
 # Every repeat begins with a scene change, which resets the temporal state,
 # so each repeat's detections are the first pass's.
-EVAL_REPEATS = 10
+EVAL_REPEATS = 3
 # The seeded base checkpoint's DCN offset convs are scaled down.  Caffe-style
 # images (mean subtracted, not divided: |x| up to ~150) through LeCun-drawn
 # offset convs give offsets of up to ~150 pixels, and there the random
@@ -3668,6 +3688,139 @@ def phase_parallel(card, root, work):
     return out
 
 
+# --- the tools phase -------------------------------------------------------------
+TOOLS_JOBS = 7  # device_op_check cases side by side (8 cores; one CUDA context each)
+# bevpool_ab: max |variant - float64 splat| / max |splat|.  float32 variants;
+# the bfloat16 interval splat (float32 prefix sums); the bfloat16 scatter
+# accumulates in bfloat16 by design, its error recorded, not bounded
+TOOLS_POOL_TOL = {"f32": 1e-5, "interval": 1e-2, "scatter": None}
+
+
+def _tool_counts():
+    """The launch counters as {COUNT_NAMES entry: count}, and reset."""
+    counts = dict(zip(COUNT_NAMES, launch_counts()))
+    reset_launch_counts()
+    return collections.Counter({k: v for k, v in counts.items() if v})
+
+
+def phase_tools(card, work):
+    """The port's tools on the card (phase 22 of the docstring)."""
+    import threading
+
+    from bevformer_tensorrt_tpu_torch.tools import (
+        bevpool_ab,
+        device_op_check,
+        flops_params,
+        msda_capture_repro,
+        opbench,
+        quant_ablation,
+    )
+
+    out, seconds, launches = {}, {}, collections.Counter()
+    wrapper_counter = {fn.__name__: name for fn, name in zip(KERNEL_WRAPPERS, COUNT_NAMES)}
+    # (a) and (b) side by side: each runs its work in processes of its own
+    box = {}
+
+    def doc():
+        t0 = time.perf_counter()
+        try:
+            box["doc"] = device_op_check.main(["--jobs", str(TOOLS_JOBS), "--timeout", "400",
+                                              "--out", str(work / "device_op_check.json")])
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            box["doc_error"] = e
+        box["doc_s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=doc)
+    thread.start()
+    t0 = time.perf_counter()
+    ab = work / "ablation"
+    ab.mkdir(parents=True, exist_ok=True)
+    synth = ab / "synth"
+    subprocess.run([sys.executable, str(REPO / "tools" / "make_synthetic_nuscenes.py"), str(synth),
+                    "--frames", "2", "--cams", "2", "--width", "160", "--height", "96"],
+                   check=True, capture_output=True, timeout=300)
+    cfg = bevformer_micro()
+    seeded = BEVFormer(cfg)
+    init_weights(seeded, torch.Generator().manual_seed(0))
+    torch.save(upstream_layout(cfg, seeded.state_dict()), ab / "fp.pth")
+    rec = quant_ablation.main(["--model", "micro", "--workdir", str(ab), "--methods", "max",
+                               "--policies", "none,no_head", "--out", str(ab / "ablation.json")])
+    seconds["quant_ablation"] = time.perf_counter() - t0
+    for r in rec["rows"]:
+        if (not {"method", "policy", "exclude", "NDS", "mAP", "nds_drop", "map_drop"} <= set(r)
+                or r["nds_drop"] != round(rec["fp"]["NDS"] - r["NDS"], 4)):
+            raise AssertionError(f"tools: quant_ablation row {r} (fp {rec['fp']})")
+    if [r["policy"] for r in rec["rows"]] != ["none", "no_head"] or "wall_s" not in rec:
+        raise AssertionError(f"tools: quant_ablation record {rec}")
+    out["quant_ablation"] = rec
+    log(f"tools quant_ablation micro (max; none, no_head) on {card}: fp NDS {rec['fp']['NDS']}, "
+        f"rows {[(r['policy'], r['NDS'], r['nds_drop']) for r in rec['rows']]} in "
+        f"{seconds['quant_ablation']:.1f} s")
+    thread.join()
+    if "doc_error" in box:
+        raise box["doc_error"]
+    summary, seconds["device_op_check"] = box["doc"], box["doc_s"]
+    if summary["bad"]:
+        bad = {k: v for k, v in summary["results"].items() if v["status"] != "ok"}
+        raise AssertionError(f"tools: device_op_check cases failed: {json.dumps(bad)[:3000]}")
+    for name, r in summary["results"].items():
+        launches.update({wrapper_counter[w]: n for w, n in r.get("launches", {}).items()})
+        log(f"tools device_op_check {name}: {r['status']} in {r['s']} s"
+            + (f", rel err {r['rel_err']:.3g}" if "rel_err" in r else "")
+            + f", launches {r.get('launches', {})}")
+    out["device_op_check"] = summary
+    log(f"tools device_op_check on {card}: {summary['ok']} cases ok in "
+        f"{seconds['device_op_check']:.1f} s ({TOOLS_JOBS} side by side)")
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    caps = work / "msda_caps"
+    cap = msda_capture_repro.main(["capture", "--dir", str(caps)])
+    rep = [msda_capture_repro.main(["replay", "--dir", str(caps), "--layer", layer])
+           for layer in ("tsa0", "sca0")]
+    seconds["msda_capture_repro"] = time.perf_counter() - t0
+    if len(cap["saved"]) != 12 or not cap["finite"] or not all(r["ok"] for r in rep):
+        raise AssertionError(f"tools: msda_capture_repro {cap} {rep}")
+    out["msda_capture_repro"] = dict(capture=cap, replay=[r["rows"] for r in rep])
+    for r in rep:
+        for row in r["rows"]:
+            log(f"tools msda_capture_repro base {row['layer']} {row['tier']}: kernel vs plain rel "
+                f"err {row['rel_err']:.3g}")
+    launches.update(_tool_counts())
+
+    t0 = time.perf_counter()
+    out["opbench"] = opbench.main([])
+    seconds["opbench"] = time.perf_counter() - t0
+    launches.update(_tool_counts())
+    t0 = time.perf_counter()
+    out["flops_params"] = flops_params.main(["tiny", "base"])
+    seconds["flops_params"] = time.perf_counter() - t0
+    want = {"bevformer_tiny": 33520379, "bevformer_base": 69034937}  # the JAX package's counts
+    got = {m["model"]: m["params"] for m in out["flops_params"]["models"]}
+    if got != want or not all(m["flops"] > 0 for m in out["flops_params"]["models"]):
+        raise AssertionError(f"tools: flops_params {out['flops_params']}")
+    launches.update(_tool_counts())
+    t0 = time.perf_counter()
+    pool = bevpool_ab.main([])
+    seconds["bevpool_ab"] = time.perf_counter() - t0
+    rel = {k: v / pool["ref_max_abs"] for k, v in pool["max_abs_err_vs_float64"].items()}
+    for name, err in rel.items():
+        impl, _, dt = name.split("/")
+        bar = TOOLS_POOL_TOL[dt if dt == "f32" else impl]
+        if bar is not None and err > bar:
+            raise AssertionError(f"tools: bevpool_ab {name} off the float64 splat by {err:.3g} "
+                                 f"(bar {bar})")
+    log(f"tools bevpool_ab on {card}: ms {json.dumps(pool['results'])}; relative error against "
+        f"the float64 splat {json.dumps(rel)}")
+    out["bevpool_ab"] = pool
+    launches.update(_tool_counts())
+    out["launches"] = dict(launches)
+    out["seconds"] = seconds
+    log(f"tools on {card}: launches {dict(launches)}; seconds "
+        f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
+    return out
+
+
 def frame_sums(rows, frame, library, extra=(), dtype="float32", key="launches_per_frame"):
     """The `dtype` launches of one `frame` (tiny, base) at the main path's
     shapes, summed: ms per frame.  `extra` names further row keys to sum."""
@@ -3854,7 +4007,8 @@ def main(argv=None):
             ("det2d_train", lambda: phase_det2d_train(card, dev, work)),
             ("serving", lambda: phase_serving(card)),
             ("export", lambda: phase_export(card, root, work)),
-            ("parallel", lambda: phase_parallel(card, root, work))):
+            ("parallel", lambda: phase_parallel(card, root, work)),
+            ("tools", lambda: phase_tools(card, work))):
         t0 = time.perf_counter()
         res[phase] = fn()
         seconds[phase] = time.perf_counter() - t0
@@ -4007,6 +4161,9 @@ def main(argv=None):
             k["tp2_launches_per_rank"] = [
                 {"train_forward": t["launches"][counter], "sequence_parallel": q["launches"][counter]}
                 for t, q in zip(res["parallel"]["train"], res["parallel"]["sp"])]
+    tools = res["tools"]["launches"]
+    for k in kernels:  # the tools phase's launches (its device_op_check cases' included)
+        k["tools_launches"] = tools.get(ENTRY_COUNTERS.get(k["name"], k["name"]), 0)
     for k in kernels:
         if k.get("main_path", True) and (k["launches"] < 1 or k.get("base_launches", 1) < 1
                                          or k.get("small_launches", 1) < 1

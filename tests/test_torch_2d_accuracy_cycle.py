@@ -10,9 +10,10 @@ from bevformer_tensorrt_tpu_torch.tools import accuracy_cycle_family
 torch.set_num_threads(2)
 
 
-def test_accuracy_cycle_2d_runs_every_stage(tmp_path):
+def test_accuracy_cycle_2d_runs_every_stage(tmp_path, monkeypatch):
     """The YOLOX cycle at its smallest on the CPU (16 images, 2 + 1 steps):
     every stage a subprocess, the JAX record's keys plus `device`."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")  # the stage processes run beside other tests
     out = tmp_path / "fam.json"
     rec = accuracy_cycle_family.main(["--family", "yolox", "--images", "16", "--steps", "2",
                                       "--qat-steps", "1", "--device", "cpu", "--workdir",

@@ -11,7 +11,8 @@ KEYS = ("fp", "fp32", "int8_ptq", "int8_qat", "nds_drop_ptq", "nds_drop_qat",
         "nds_delta_bf16_vs_fp32", "wall_s", "device")
 
 
-def test_cycle_runs_on_the_cpu(tmp_path):
+def test_cycle_runs_on_the_cpu(tmp_path, monkeypatch):
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")  # the stage processes run beside other tests
     out = tmp_path / "cycle.json"
     rec = accuracy_cycle.main(["--model", "micro", "--frames", "2", "--steps", "2",
                                "--qat-steps", "1", "--device", "cpu", "--workdir",

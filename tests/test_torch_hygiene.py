@@ -67,12 +67,13 @@ def test_port_imports_no_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'bevformer_tensorrt_tpu'))\n"
         "assert not bad, bad\n"
+        "assert not [k for k in sys.modules if k.startswith(p.__name__ + '.samples')]\n"
         "print('modules', sum(k.startswith('bevformer_tensorrt_tpu_torch') for k in sys.modules))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 86
+    assert int(res.stdout.split()[-1]) >= 127
     for module in ("quant.qdq", "quant.calibrate", "quant.fold", "ops.int8_matmul",
                    "tools.calibrate", "ops.gather_probe", "runtime.torch_import",
                    "tools.kernel_bench", "tools.kernel_cases", "data.nuscenes",
@@ -92,7 +93,11 @@ def test_port_imports_no_jax():
                    "runtime.serving", "runtime.export", "tools.serving_bench", "tools.export",
                    "tools.bevdet.export", "tools.det2d.export", "data.transforms2d",
                    "train.losses2d", "tools.det2d.train", "ops.grid_sample", "ops.inverse",
-                   "ops.voxel"):
+                   "ops.voxel", "registry", "tools.quant_ablation", "tools.device_op_check",
+                   "tools.msda_capture_repro", "tools.opbench", "tools.component_bench",
+                   "tools.msda_breakdown", "tools.benchmark_all", "tools.bevpool_ab",
+                   "tools.flops_params", "tools.create_data", "tools.cam_budget_check",
+                   "tools.geometry_analysis"):
         assert os.path.exists(os.path.join(REPO, "bevformer_tensorrt_tpu_torch",
                                            *module.split(".")) + ".py"), module
 
@@ -451,18 +456,21 @@ def test_native_nms_has_no_fallback(tmp_path, monkeypatch):
         native.nms_2d_native(boxes[:, :4], np.array([0.9, 0.8]), 0.5)
 
 
-@pytest.mark.parametrize("tool,left_out", [("train", "--msda-impl"), ("evaluate", "--knobs")])
-def test_left_out_flags_are_named(tool, left_out, capsys):
-    """The BEVFormer train and evaluate CLIs accept the JAX CLI's
-    `--distributed` and name the flags they still leave out, and only
-    those, in their help."""
+@pytest.mark.parametrize("tool,left_out,kept", [
+    ("train", "--msda-impl", "--distributed"), ("evaluate", "--knobs", "--distributed"),
+    ("opbench", "--k", "--iters"), ("bevpool_ab", "--k, scatter_sorted", "--iters"),
+    ("benchmark_all", "--family-timeout", "--partial-out")])
+def test_left_out_flags_are_named(tool, left_out, kept, capsys):
+    """The CLIs accept the JAX CLI's flags they port (the BEVFormer train and
+    evaluate CLIs its `--distributed`) and name the flags they still leave
+    out, and only those, in their help."""
     import importlib
 
     main = importlib.import_module(f"bevformer_tensorrt_tpu_torch.tools.{tool}").main
     with pytest.raises(SystemExit):
         main(["--help"])
     out = " ".join(capsys.readouterr().out.split())
-    assert "--distributed" in out.split("Not ported")[0]
+    assert kept in out.split("Not ported")[0]
     assert f"Not ported from the JAX CLI: {left_out}." in out
 
 
