@@ -36,7 +36,7 @@ import ctypes
 
 import torch
 
-from . import _cuda
+from . import _cuda, knobs
 from .plain_vjp import register_op, wants_grad, with_plain_vjp
 
 FLASH_HEAD_DIMS = (8, 32, 64)  # micro; tiny/small/base; the wider flash width
@@ -84,12 +84,15 @@ def flash_launch_geometry(B: int, Lq: int, Lk: int, d: int, kind: str, warps: in
     reaches that, one row group a block, the most blocks.  Returns grid (x
     over the query rows, y over B), warps (row groups a block), splits,
     threads, rows_per_warp, kv_tile (keys a staged tile) and smem (bytes).
-    `warps` names the row groups instead (the bench's comparison of them)."""
+    `warps` names the row groups instead (the bench's comparison of them);
+    else the knob FLASH_ROW_GROUPS does, where it is not 0."""
     dims = INT8_FLASH_HEAD_DIMS if kind == "int8" else FLASH_HEAD_DIMS
     if kind not in FLASH_KINDS or d not in dims:
         raise ValueError(f"flash geometry: kind {kind!r} takes head dims {dims}, got {d}")
     if B < 1 or Lq < 1 or Lk < 1:
         raise ValueError(f"flash geometry: empty problem B {B}, Lq {Lq}, Lk {Lk}")
+    if warps not in WARP_CHOICES:
+        warps = knobs.get("FLASH_ROW_GROUPS")
     if warps not in WARP_CHOICES:
         warps = next((w for w in WARP_CHOICES if -(-Lq // (ROWS_PER_WARP * w)) * B >= SMS),
                      WARP_CHOICES[-1])

@@ -59,7 +59,7 @@ from typing import Tuple
 
 import torch
 
-from . import _cuda
+from . import _cuda, knobs
 from .plain_vjp import register_op, wants_grad, with_plain_vjp
 
 LAYOUTS = ("NCHW", "NHWC")
@@ -532,12 +532,13 @@ def dcn_config(cout_g: int, dtype, groups: int = 1, pixels: int = 1, sms: int = 
     the 256-row tile where the group has more than 128 outputs (the taps are
     then sampled once per 256 outputs, not once per 128: faster at all four
     of base's and small's DCN shapes on an H100, even where its grid is 96
-    blocks), else the 128-row one."""
+    blocks), else the 128-row one; the knob DCN_WIDE_TILE false takes the
+    128-row one everywhere."""
     if dtype == torch.float32:
         tiles = groups * -(-cout_g // 128) * -(-pixels // 128)
         return "f32_128x128" if tiles >= BLOCKS_PER_SM["f32_128x128"] * sms else "f32_128x64"
     if dtype == torch.bfloat16:
-        return "bf16_256x128" if cout_g > 128 else "bf16_128x128"
+        return "bf16_256x128" if cout_g > 128 and knobs.get("DCN_WIDE_TILE") else "bf16_128x128"
     raise TypeError(f"dcn kernel: dtype {dtype} is not float32 or bfloat16")
 
 

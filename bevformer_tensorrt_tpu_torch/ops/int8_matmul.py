@@ -9,7 +9,8 @@ read.  For CPU tensors it runs `int8_matmul_plain`; for CUDA tensors it
 launches the kernel of `csrc/int8_gemm.cu` or raises.
 
 The kernel runs in one of the tile configurations of `GEMM_CONFIGS`, which
-`gemm_config` picks from the shape alone; the operands reach it through TMA
+`gemm_config` picks from the shape and the knobs GEMM_SMALL_OUTPUTS and
+GEMM_SMALL_K (`ops/knobs.py`); the operands reach it through TMA
 tensor maps whose arguments `tensor_map_args` states and checks.
 
 The product has no gradient (nor has the JAX package's): with grad mode on,
@@ -27,7 +28,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import _cuda
+from . import _cuda, knobs
 from .plain_vjp import register_op, wants_grad
 
 K_ALIGN = 16  # a TMA row stride is a multiple of 16 bytes
@@ -41,18 +42,17 @@ GEMM_CONFIGS = {
     "128x64": (2, 128, 64, 6),     # N <= 64: the stem and stage 1
     "64x64": (1, 64, 64, 4),       # launch-sized products, two blocks an SM
 }
-SMALL_OUTPUTS = 132 * 128 * 128  # fewer outputs than one 128x128 tile per SM
-SMALL_K = 1024
 
 
 def gemm_config(M: int, N: int, K: int) -> str:
     """The tile configuration for an (M, K, N) product: a launch-sized
-    product (fewer outputs than one 128x128 tile per SM, and K under
-    SMALL_K) takes 64x64 tiles, to spread over more SMs; otherwise 128x64
+    product (fewer outputs than the knob GEMM_SMALL_OUTPUTS, by default one
+    128x128 tile per SM of an H100, and K under the knob GEMM_SMALL_K)
+    takes 64x64 tiles, to spread over more SMs; otherwise 128x64
     for N <= 64, else 128x128 (at K 4608 the larger tiles win even where
     they leave SMs idle: 15.9 against 21.3 us for (2250, 4608, 512) on an
     H100)."""
-    if M * N < SMALL_OUTPUTS and K < SMALL_K:
+    if M * N < knobs.get("GEMM_SMALL_OUTPUTS") and K < knobs.get("GEMM_SMALL_K"):
         return "64x64"
     return "128x64" if N <= 64 else "128x128"
 

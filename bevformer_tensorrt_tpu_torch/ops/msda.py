@@ -32,7 +32,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-from . import _cuda
+from . import _cuda, knobs
 from .plain_vjp import register_op, wants_grad, with_plain_vjp
 
 Shapes = Tuple[Tuple[int, int], ...]
@@ -98,8 +98,7 @@ def multi_scale_deformable_attn_plain(value, reference_points, sampling_offsets,
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _levels: Dict[tuple, torch.Tensor] = {}
 MSDA_THREADS = 256         # a block of the kernel; one softmax group of taps fits in it
-MSDA_TAPS_PER_BLOCK = 1024  # (query, head, tap) triples a block takes at most
-MSDA_MIN_BLOCKS = 4 * 132  # blocks a launch is spread over where it has the queries: 4 an SM
+H100_SMS = 132             # streaming multiprocessors of an H100 SXM
 SMEM_LIMIT = 232448        # dynamic shared memory one block may opt into on Hopper
 
 
@@ -107,7 +106,7 @@ MSDA_MAX_CH = 128          # channels a block blends; wider rows are split on a 
 
 
 def msda_launch_geometry(bs: int, nq: int, heads: int, ch: int, L: int, P: int,
-                         value_esz: int, value_ptr: int = 0) -> dict:
+                         value_esz: int, value_ptr: int = 0, sms: int = H100_SMS) -> dict:
     """How `csrc/msda.cu` is launched for a problem: `lpp`, the taps of a
     (query, head) that one phase-1 pass takes, padded to a power of two (at
     most MSDA_THREADS), and `passes` = ceil(L*P / lpp) (more than one only
@@ -134,7 +133,9 @@ def msda_launch_geometry(bs: int, nq: int, heads: int, ch: int, L: int, P: int,
     chunks = -(-ch // MSDA_MAX_CH)
     cch = ch if chunks == 1 else MSDA_MAX_CH
     lpp = min(1 << (LP - 1).bit_length(), MSDA_THREADS)
-    qt = max(1, min(nq, MSDA_TAPS_PER_BLOCK // (heads * lpp), -(-bs * nq // MSDA_MIN_BLOCKS)))
+    min_blocks = knobs.get("MSDA_BLOCKS_PER_SM") * sms
+    qt = max(1, min(nq, knobs.get("MSDA_TAPS_PER_BLOCK") // (heads * lpp),
+                    -(-bs * nq // min_blocks)))
 
     def smem_of(qt, lpp):
         # two int2 of padding after each output's corners
@@ -260,7 +261,8 @@ def _msda_cuda(value, reference_points, sampling_offsets, attention_weights,
             raise ValueError("msda int8 kernel: the table must be int8 of the value's shape "
                              "with a float32 scale [bs, heads], both on the value's device")
         table = q
-    geo = msda_launch_geometry(bs, nq, heads, ch, L, P, table.element_size(), table.data_ptr())
+    geo = msda_launch_geometry(bs, nq, heads, ch, L, P, table.element_size(), table.data_ptr(),
+                               torch.cuda.get_device_properties(value.device).multi_processor_count)
     lib = _msda_lib()
     levels = _level_table(spatial_shapes, value.device)
     stream = torch.cuda.current_stream(value.device).cuda_stream

@@ -19,6 +19,10 @@ another.  A module holding a transposed convolution that needs cuDNN's
 deterministic algorithms (`cudnn_deterministic` on the module, CenterNet's
 neck) asks for them through a backend flag, which no graph carries:
 `meta.json` records it and the loaded program sets it around every call.
+The kernels' launch knobs are read at launch, not traced either: where the
+directory holds a `knobs.json` (`tools/export.py --autotune`), the loaded
+program runs under its knobs, else under the defaults
+(`runtime/autotune.py`).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from .autotune import knob_set, load_knobs
 from .engine import resolve_device
 
 ARTIFACT = "model.pt2"
@@ -71,12 +76,15 @@ def export_program(module: torch.nn.Module, args: Sequence[Any], path,
 
 class Program:
     """A reloaded artifact: calling it runs the program's module under
-    no_grad (and with cuDNN's deterministic algorithms where `meta.json`
-    asks for them)."""
+    no_grad and under its kernel knobs (`knobs`; None: the defaults), with
+    cuDNN's deterministic algorithms where `meta.json` asks for them; the
+    knobs set before the call are restored after it."""
 
-    def __init__(self, program: torch.export.ExportedProgram, meta: Dict[str, Any]):
+    def __init__(self, program: torch.export.ExportedProgram, meta: Dict[str, Any],
+                 knobs: Optional[Dict[str, Any]] = None):
         self.program = program
         self.meta = meta
+        self.knobs = knobs
         self.module = program.module()
 
     def __call__(self, *args):
@@ -86,15 +94,16 @@ class Program:
             flags = cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                                 benchmark_limit=cudnn.benchmark_limit, deterministic=True,
                                 allow_tf32=cudnn.allow_tf32)
-        with torch.no_grad(), flags:
+        with torch.no_grad(), flags, knob_set(self.knobs):
             return self.module(*args)
 
 
 def load_program(path, device=None) -> Program:
     """Reload the artifact directory `path` on `device` (CUDA unless the
     caller names another; raises where it differs from the device the
-    program was exported on).  Imports the port's ops first, which
-    registers the operators the program calls."""
+    program was exported on), with the knobs of its `knobs.json` where it
+    has one.  Imports the port's ops first, which registers the operators
+    the program calls."""
     from .. import ops  # noqa: F401  (registers the bevformer_port operators)
 
     path = Path(path)
@@ -103,7 +112,7 @@ def load_program(path, device=None) -> Program:
     if meta.get("device") != device.type:
         raise ValueError(f"{path}: exported on {meta.get('device')}, asked to run on "
                          f"{device.type}; export again on that device")
-    return Program(torch.export.load(str(path / ARTIFACT)), meta)
+    return Program(torch.export.load(str(path / ARTIFACT)), meta, load_knobs(path))
 
 
 def artifact_summary(path) -> Dict[str, Any]:

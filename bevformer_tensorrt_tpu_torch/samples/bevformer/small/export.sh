@@ -1,8 +1,10 @@
 #!/usr/bin/env bash
 # Build the deployable artifact (reference: pth2onnx.sh + onnx2trt.sh); the kernels'
-# libraries built for this card first (--aot)
+# libraries built for this card first (--aot); --autotune times the kernels' launch
+# knobs at the deploy shapes on this card and writes the winner beside the program
+# (knobs.json, which load_program applies): the reference's build-time tactic search
 set -e
 python -m bevformer_tensorrt_tpu_torch.tools.export small \
   --checkpoint checkpoints/bevformer_small_epoch_24.pth \
   --quant-scales checkpoints/small_scales.npz --quant int8 \
-  --out checkpoints/small_program --aot "$@"
+  --out checkpoints/small_program --aot --autotune "$@"

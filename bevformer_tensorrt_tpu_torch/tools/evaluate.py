@@ -4,7 +4,8 @@
     python -m bevformer_tensorrt_tpu_torch.tools.evaluate tiny --infos <infos.pkl>
         [--data-root DIR] [--checkpoint upstream.pth] [--dtype bfloat16]
         [--quant-scales scales.npz [--quant int8] [--quant-exclude PATTERN ...]]
-        [--limit N] [--cam-budget 1.0] [--device cuda] [--distributed [--partial-dir DIR]]
+        [--limit N] [--cam-budget 1.0] [--knobs DIR] [--device cuda]
+        [--distributed [--partial-dir DIR]]
 
 The loader (`data/nuscenes.py`) feeds `BEVFormerEngine`, the NMS-free
 decode follows, then `evaluate_nuscenes`.  The last line of stdout is one
@@ -13,9 +14,10 @@ and last frames' latencies dropped, the reference's convention).
 
 `--checkpoint` is an upstream-layout state_dict (`.pth`); without it the
 weights are seeded.  `--quant-scales` is a `CalibrationResult` `.npz` from
-`tools/calibrate.py`, with its `.policy.json` beside it.  Left out (the JAX
-CLI has it): `--knobs` (autotuned Mosaic knobs; the port's kernels pick
-their geometry by rule).  Runs on CUDA unless `--device cpu` is given.
+`tools/calibrate.py`, with its `.policy.json` beside it.  `--knobs` is an
+export directory whose `knobs.json` (`tools/export.py --autotune`) gives the
+kernels' launch knobs for the run (`runtime/autotune.py`); they are printed
+on stderr.  Runs on CUDA unless `--device cpu` is given.
 
 `--distributed` (or torchrun's variables in the environment) evaluates over
 the job torchrun describes: whole scenes a rank (`scene_group_shards`; the
@@ -52,6 +54,7 @@ from ..parallel.mesh import in_torchrun
 from ..quant.fold import attach_quant_scales
 from ..quant.observers import CalibrationResult
 from ..quant.policy import load_policy
+from ..runtime.autotune import knob_set, load_knobs
 from ..runtime.engine import BEVFormerEngine
 from ..runtime.torch_import import load_bevformer_checkpoint, load_torch_checkpoint
 
@@ -180,9 +183,7 @@ class EvalResult:
 def main(argv=None) -> EvalResult:
     """Parse `argv`, evaluate, print the metrics line; the result is
     returned for callers that drive the tool from Python."""
-    ap = argparse.ArgumentParser(
-        description=__doc__.splitlines()[0],
-        epilog="Not ported from the JAX CLI: --knobs.")
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("model", choices=MODELS)
     ap.add_argument("--infos", required=True)
     ap.add_argument("--data-root", default=None)
@@ -199,6 +200,9 @@ def main(argv=None) -> EvalResult:
     ap.add_argument("--limit", type=int, default=None)
     ap.add_argument("--cam-budget", type=float, default=1.0,
                     help="fraction of BEV queries kept per camera (1.0 = exact)")
+    ap.add_argument("--knobs", default=None,
+                    help="export directory whose knobs.json (tools/export.py --autotune) sets "
+                         "the kernels' launch knobs for the run")
     ap.add_argument("--device", default=None, help="default: cuda (raises without one)")
     ap.add_argument("--distributed", action="store_true",
                     help="scene-sharded evaluation over the job torchrun describes (also "
@@ -207,6 +211,16 @@ def main(argv=None) -> EvalResult:
                     help="shared directory for the ranks' partial results (default: beside "
                          "--infos)")
     args = ap.parse_args(argv)
+    if not args.knobs:
+        return evaluate(args)
+    knobs = load_knobs(args.knobs)
+    print(f"kernel knobs from {args.knobs}: {knobs}", file=sys.stderr)
+    with knob_set(knobs):
+        return evaluate(args)
+
+
+def evaluate(args) -> EvalResult:
+    """The run of `main`'s parsed arguments."""
     distributed = args.distributed or in_torchrun()
     device = args.device
     if distributed:

@@ -169,10 +169,11 @@ def load_set(path: Path, device):
     return t("v"), t("ref"), t("off"), t("attn"), shapes, d
 
 
-def replay_as_captured(path: Path, device="cpu"):
+def replay_as_captured(path: Path, device=None):
     """The saved call on its own table kind and dtype: the output the module
-    computed, where `device` runs what the capture ran."""
-    value, ref, off, attn, shapes, d = load_set(path, device)
+    computed, where `device` (CUDA unless the caller names another) runs
+    what the capture ran."""
+    value, ref, off, attn, shapes, d = load_set(path, resolve_device(device))
     dt = getattr(torch, str(d["dtype"]))
     fn = (msda_ops.multi_scale_deformable_attn_int8 if bool(d["int8"])
           else msda_ops.multi_scale_deformable_attn)

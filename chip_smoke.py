@@ -57,7 +57,7 @@ Phases (any failure exits non-zero before the result lines):
      the op, the attention kernel alone and the quantization alone timed,
      and the device kernels of one call counted (at most three).
  10. BEVFormer-tiny under quant="int8", default policy, at full width:
-     calibrate the QDQ tier on the card over four synthetic frames (`max`
+     calibrate the QDQ tier on the card over two synthetic frames (`max`
      and `entropy` both run; `entropy` is used), attach and fold the scales
      into the int8 tier, then three frames on the kernel path (launch counts
      asserted: one int8 product per dense or conv layer, 9 int8-table and 3
@@ -185,13 +185,25 @@ Phases (any failure exits non-zero before the result lines):
      `tools/serving_bench.py`'s `bench`: serving against sequential
      frames/s.
  20. Export: tiny float32, tiny int8 (phase 12's `tools/calibrate.py`
-     scales), base bfloat16, YOLOX-x and CenterNet-R18 float32 at batch 8,
-     BEVDet-R50 bfloat16 on the generated set's rig through their export
-     CLIs (seconds, MB), the module each CLI built run eagerly on real
-     inputs before it exports, each artifact reloaded in one fresh
-     interpreter that imports the port alone and run on the card: outputs
-     bit for bit the eager module's, each kernel launched as often as in
-     the eager forward, CenterNet's two runs bit for bit.
+     scales), base bfloat16 with `--autotune`, YOLOX-x and CenterNet-R18
+     float32 at batch 8, BEVDet-R50 bfloat16 on the generated set's rig
+     through their export CLIs (seconds, MB), the module each CLI built run
+     eagerly on real inputs before it exports (under the knobs it exports
+     under), each artifact reloaded in one fresh interpreter that imports
+     the port alone and run on the card under its `knobs.json`: outputs bit
+     for bit the eager module's, each kernel launched as often as in the
+     eager forward, CenterNet's two runs bit for bit.  Base's sweep: every
+     set of `runtime/autotune.py::DEFAULT_GRID` (MSDA taps a block x blocks
+     an SM x the DCN's wide tile) timed by the CLI, ms a frame or its error
+     logged with the card, and each set's frame on the sweep's timing input
+     held against the plain path's frame (bfloat16 rms 5e-2); every set
+     must run; then the default set and the winner timed again,
+     alternately, three times each.  Base goes first, so its sweep has the
+     card and the host to itself.  Then tiny int8 from phase 12's scales under non-default
+     knobs of the int8 product (GEMM_SMALL_OUTPUTS 0: no 64x64 tiles) and
+     of both flash kernels (FLASH_ROW_GROUPS 1), its launches by tile
+     configuration and row groups against the defaults', held against the
+     plain path at the int8 bars.
  21. The parallel layer (`bevformer_tensorrt_tpu_torch/parallel/`) on the one
      card.  (a) Spawned ranks (start method spawn) over gloo on cuda:0, NCCL
      taking no two ranks on one card: at tiny's full width a dp1 x tp2 step
@@ -298,6 +310,7 @@ from bevformer_tensorrt_tpu_torch.ops import KERNEL_WRAPPERS, _cuda, reset_launc
 from bevformer_tensorrt_tpu_torch.ops import attention as attn_ops
 from bevformer_tensorrt_tpu_torch.ops import dcn as dcn_ops
 from bevformer_tensorrt_tpu_torch.ops import int8_matmul as int8_ops
+from bevformer_tensorrt_tpu_torch.ops import knobs
 from bevformer_tensorrt_tpu_torch.ops import msda as msda_ops
 from bevformer_tensorrt_tpu_torch.ops.bev_pool import bev_pool_v2
 from bevformer_tensorrt_tpu_torch.quant.calibrate import qdq_sites
@@ -306,6 +319,7 @@ from bevformer_tensorrt_tpu_torch.quant.observers import CalibrationResult
 from bevformer_tensorrt_tpu_torch.quant.policy import load_policy
 from bevformer_tensorrt_tpu_torch.quant.qdq import QDQ
 from bevformer_tensorrt_tpu_torch.runtime import det2d_engine
+from bevformer_tensorrt_tpu_torch.runtime.autotune import knob_set
 from bevformer_tensorrt_tpu_torch.runtime.bevdet_engine import BEVDetEngine, rig_ranks
 from bevformer_tensorrt_tpu_torch.runtime.engine import BEVFormerEngine
 from bevformer_tensorrt_tpu_torch.runtime.serving import ContinuousBatchingEngine, FrameRequest
@@ -3176,7 +3190,7 @@ for case in json.load(open(sys.argv[1])):
     wmat_args = [getattr(n.args[5], "op", None) for n in graph.nodes
                  if str(n.target) == "bevformer_port.modulated_deform_conv2d.default"]
     torch.save(dict(outs=outs, counts=counts, load_s=load_s, ms=ms, computed=computed,
-                    wmat_args=wmat_args), case["out"])
+                    wmat_args=wmat_args, knobs=program.knobs), case["out"])
     del program, out
     torch.cuda.empty_cache()
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "bevformer_tensorrt_tpu"))
@@ -3215,7 +3229,7 @@ def eager_reference(cli, inputs, path):
             out = module(*x)
             torch.cuda.synchronize()
         ref.update(outs=[t.cpu() for t in leaves(out)], counts=launch_counts(),
-                   kept=kept_weights(module))
+                   kept=kept_weights(module), knobs=knobs.current())
         torch.save(x, path)
         del out, x
         ref["s"] = time.perf_counter() - t0
@@ -3250,20 +3264,189 @@ def det2d_inputs(module):
     return ((x * 255.0) if isinstance(module, YOLOX) else x,)
 
 
+@contextlib.contextmanager
+def sweep_frames():
+    """While open, each knob set the export CLI's sweep times first runs
+    one frame of the module on the sweep's inputs, under that set, whose
+    outputs are held against the plain path's frame on the same inputs
+    (made once, at the first set), then times as many frames of its own,
+    each one: the yielded dict's `rows` get each set's knobs, rms errors and
+    ms a frame, its `call` the module and inputs timed.  A fast but wrong
+    geometry must not win."""
+    rows, plain, rec = [], [], {}
+    timed = export_cli.frame_seconds
+
+    def checked(module, inputs, iters):
+        rec["call"] = (module, inputs, iters)
+        with torch.no_grad():
+            if not plain:
+                with plain_versions():
+                    plain.extend(t.float() for t in leaves(module(*inputs)))
+            got = [t.float() for t in leaves(module(*inputs))]
+            torch.cuda.synchronize()
+            own = []
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                module(*inputs)
+                torch.cuda.synchronize()
+                own.append((time.perf_counter() - t0) * 1e3)
+        rows.append(dict(knobs=knobs.current(), finite=all(bool(torch.isfinite(t).all())
+                                                           for t in got),
+                         rms={name: rel_errors(a, b)["rms"] for name, a, b in
+                              zip(("bev_embed", "classes", "coords"), got, plain)}, ms=own))
+        del got
+        return timed(module, inputs, iters)
+
+    export_cli.frame_seconds = checked
+    rec["rows"] = rows
+    try:
+        yield rec
+    finally:
+        export_cli.frame_seconds = timed
+        plain.clear()
+
+
+SWEEP_RETIME_ROUNDS = 3  # the default set and the winner timed again, alternately
+
+
+def check_sweep(card, case_dir, checked):
+    """The base sweep's `knobs.json` against the frames `sweep_frames`
+    checked: every grid set ran, within the bfloat16 bar of the plain path,
+    and the winner is the fastest; then the default set and the winner timed
+    again by the CLI's timer, alternately, SWEEP_RETIME_ROUNDS times each
+    (the sweep times each set once, so its ranking carries the frames'
+    noise).  Returns the sweep's record."""
+    rows = checked["rows"]
+    tuned = json.loads((Path(case_dir) / "knobs.json").read_text())
+    table = tuned["table"]
+    for row, check in zip(table, rows):
+        set_ = {k: row[k] for k in tuned["knobs"]}
+        worst = max(check["rms"].values())
+        log(f"autotune base bfloat16 {set_}: "
+            + (f"{row['seconds'] * 1e3:.3f} ms a frame" if "seconds" in row
+               else f"failed: {row['error']}")
+            + f" (frames of its own, ms: min {min(check['ms']):.3f}, median "
+              f"{float(np.median(check['ms'])):.3f}), rms vs plain {check['rms']}, on {card}")
+        if knobs.complete(set_) != check["knobs"]:
+            raise AssertionError(f"autotune: the checked frame ran {check['knobs']}, the "
+                                 f"table's set is {set_}")
+        if not check["finite"] or not worst <= BF16_RMS_TOL:
+            raise AssertionError(f"autotune {set_}: frame rms {check['rms']} against the plain "
+                                 f"path (bar {BF16_RMS_TOL}), finite {check['finite']}")
+    errors = [row for row in table if "error" in row]
+    if len(rows) != len(table) or len(table) != 18 or errors:
+        raise AssertionError(f"autotune: {len(table)} sets timed, {len(rows)} checked, "
+                             f"failed {errors}")
+    best = min(table, key=lambda r: r["seconds"])
+    if best["seconds"] != tuned["seconds"]:
+        raise AssertionError(f"autotune: winner {tuned['knobs']} is not the fastest {best}")
+    default_ms = table[0]["seconds"] * 1e3
+    log(f"autotune base bfloat16: default set {default_ms:.3f} ms a frame, winner "
+        f"{tuned['knobs']} {tuned['seconds'] * 1e3:.3f} ms ({tuned['iters']} frames each, "
+        f"median) on {card}")
+    module, inputs, iters = checked.pop("call")
+    retimed = {"default": [], "winner": []}
+    for _ in range(SWEEP_RETIME_ROUNDS):
+        for name, values in (("default", None), ("winner", tuned["knobs"])):
+            with knob_set(values):
+                retimed[name].append(export_cli.frame_seconds(module, inputs, iters) * 1e3)
+    del module, inputs
+    log(f"autotune base bfloat16 timed again, alternately: default set {retimed['default']} "
+        f"ms, winner {retimed['winner']} ms a frame on {card}")
+    return dict(knobs=tuned["knobs"], winner_ms=tuned["seconds"] * 1e3, default_ms=default_ms,
+                retimed_ms=retimed, timing_input=tuned["timing_input"],
+                table=[dict(row, rms_vs_plain=c["rms"], own_ms=c["ms"])
+                       for row, c in zip(table, rows)])
+
+
+@contextlib.contextmanager
+def rule_choices():
+    """While open, the int8 product's tile configuration and each flash
+    launch's row groups are tallied as the launches pick them."""
+    tally = collections.Counter()
+    gemm, flash = int8_ops.gemm_config, attn_ops.flash_launch_geometry
+
+    def gemm_spy(*a):
+        config = gemm(*a)
+        tally[f"gemm {config}"] += 1
+        return config
+
+    def flash_spy(*a, **k):
+        geo = flash(*a, **k)
+        tally[f"flash {a[4]} row groups {geo['warps']}"] += 1
+        return geo
+
+    int8_ops.gemm_config, attn_ops.flash_launch_geometry = gemm_spy, flash_spy
+    try:
+        yield tally
+    finally:
+        int8_ops.gemm_config, attn_ops.flash_launch_geometry = gemm, flash
+
+
+# the int8 product's and flash's knobs, which the export sweep leaves at their
+# rules: no 64x64 tiles, one row group a flash block
+MOVED_KNOBS = {"GEMM_SMALL_OUTPUTS": 0, "FLASH_ROW_GROUPS": 1}
+
+
+def knob_families(card, work):
+    """Tiny int8 (phase 12's scales) on two frames under the defaults and
+    under MOVED_KNOBS: the launches the same, their tile configurations and
+    row groups moved, the outputs held against the plain path at the int8
+    bars (and whether they equal the defaults' bit for bit)."""
+    path = str(work / "tiny_scales.npz")
+    cfg = bevformer_tiny(quant="int8", quant_exclude=load_policy(path))
+    engine = BEVFormerEngine(cfg, seed=0)
+    attach_quant_scales(engine.model, CalibrationResult.load(path).scales)
+    frames = synthetic_frames(cfg, np.random.default_rng(0), ("scene-A", "scene-A"))
+    run_frames(engine, frames)  # warm-up
+    runs = {}
+    for name, knob_values in (("default", None), ("moved", MOVED_KNOBS)):
+        with knob_set(knob_values), rule_choices() as tally:
+            reset_launch_counts()
+            outs = run_frames(engine, frames)
+            runs[name] = dict(outs=outs, counts=launch_counts(), choices=dict(tally))
+        log(f"tiny int8 under {knob_values or 'the default knobs'}: launches "
+            f"{dict(zip(COUNT_NAMES, runs[name]['counts']))}, choices {runs[name]['choices']}")
+    default, moved = runs["default"], runs["moved"]
+    if moved["counts"] != default["counts"] or moved["choices"] == default["choices"]:
+        raise AssertionError(f"tiny int8 knobs: launches {moved['counts']} against "
+                             f"{default['counts']}, choices {moved['choices']} against "
+                             f"{default['choices']}")
+    if "gemm 64x64" in moved["choices"] or any(k.startswith("flash") and not k.endswith(" 1")
+                                              for k in moved["choices"]):
+        raise AssertionError(f"tiny int8 knobs: {MOVED_KNOBS} not taken: {moved['choices']}")
+    plain = run_plain(engine, frames)
+    err = compare_frames(moved["outs"], plain, "tiny int8 moved knobs vs plain", tols=INT8_TOLS)
+    coords = mean_coords_diff(moved["outs"], plain)
+    if not coords <= INT8_COORDS_TOL:
+        raise AssertionError(f"tiny int8 moved knobs: mean |coords diff| {coords} against the "
+                             f"plain path > {INT8_COORDS_TOL}")
+    same = all(torch.equal(a, b) for x, y in zip(moved["outs"], default["outs"])
+               for a, b in zip(x, y))
+    log(f"tiny int8 moved knobs vs plain: rms {err['rms']:.3e}, mean |coords diff| "
+        f"{coords:.3e}; bit for bit the default knobs' frames: {same}; on {card}")
+    del engine
+    torch.cuda.empty_cache()
+    return dict(knobs=MOVED_KNOBS, launches=dict(zip(COUNT_NAMES, moved["counts"])),
+                choices_default=default["choices"], choices_moved=moved["choices"],
+                rel_err_vs_plain=err, coords_diff_plain=coords, equal_to_default_knobs=same)
+
+
 def export_cases(work, root):
     """(name, CLI module, inputs of the module it builds, CLI arguments,
-    runs) of the export phase, in the order
-    that leaves the reloading interpreter least to do after the last
-    export.  Tiny int8 takes the eval phase's scales (`tools/calibrate.py
-    tiny`, `max`, TSA's tables in floating point), the 2D detectors the 2D
-    phase's seeded checkpoints."""
+    runs) of the export phase: base bfloat16 first, so that its sweep has
+    the card and the host to itself (the reloading interpreter waits for
+    its artifact), then in the order that leaves the reloading interpreter
+    least to do after the last export.  Tiny int8 takes the eval phase's
+    scales (`tools/calibrate.py tiny`, `max`, TSA's tables in floating
+    point), the 2D detectors the 2D phase's seeded checkpoints."""
     ckpt = {name: str(work / f"{name}_upstream.pth") for name in ("yolox_x", "centernet_r18")}
     return [
+        ("base_bfloat16", export_cli, bevformer_inputs, ["base", "--autotune"], 1),
         ("tiny_float32", export_cli, bevformer_inputs, ["tiny", "--dtype", "float32"], 1),
         ("tiny_int8", export_cli, bevformer_inputs,
          ["tiny", "--dtype", "float32", "--quant-scales", str(work / "tiny_scales.npz"),
           "--quant", "int8"], 1),
-        ("base_bfloat16", export_cli, bevformer_inputs, ["base"], 1),
         ("yolox_x", det2d_export, det2d_inputs,
          ["yolox_x", "--batch", str(DET2D_BATCH), "--checkpoint", ckpt["yolox_x"]], 1),
         ("bevdet_r50_bfloat16", bevdet_export, bevdet_inputs,
@@ -3299,14 +3482,19 @@ def phase_export(card, root, work):
     try:
         for (name, cli, inputs, argv, _), case in zip(cases, spec):
             t0 = time.perf_counter()
-            with eager_reference(cli, inputs, case["inputs"]) as ref:
+            with eager_reference(cli, inputs, case["inputs"]) as ref, sweep_frames() as checked:
                 line = cli.main(argv + ["--out", case["dir"]])
             export_s = time.perf_counter() - t0 - ref["s"]
+            res[name] = dict(export_s=export_s, eager_s=ref["s"], artifact_mb=line["artifact_mb"],
+                             artifacts=line["artifacts"])
+            if "--autotune" in argv:  # before the reload: nothing else on the card or the host
+                res[name]["autotune"] = check_sweep(card, case["dir"], checked)
+                ref["tuned"] = res[name]["autotune"]["knobs"]
+            elif checked["rows"]:
+                raise AssertionError(f"export {name}: a sweep ran without --autotune")
             Path(case["done"]).touch()
             eager[name] = ref
             torch.cuda.empty_cache()
-            res[name] = dict(export_s=export_s, eager_s=ref["s"], artifact_mb=line["artifact_mb"],
-                             artifacts=line["artifacts"])
             log(f"export {name}: {export_s:.1f} s (and {ref['s']:.1f} s of the eager reference), "
                 f"{line['artifact_mb']:.1f} MB, on {card}")
         if reload.wait(timeout=900) != 0:
@@ -3331,6 +3519,11 @@ def phase_export(card, root, work):
             if tuple(counts) != tuple(want_counts):
                 raise AssertionError(f"export {name} run {r}: launches {counts}, eager "
                                      f"{want_counts}")
+        tuned = eager[name].get("tuned")
+        if got["knobs"] != tuned or eager[name]["knobs"] != knobs.complete(tuned):
+            raise AssertionError(f"export {name}: the reloaded program runs under {got['knobs']}, "
+                                 f"the eager module ran under {eager[name]['knobs']}, the sweep "
+                                 f"chose {tuned}")
         computed = sorted(set(kept) & set(got["computed"]))
         if computed or any(op != "placeholder" for op in got["wmat_args"]):
             raise AssertionError(f"export {name}: the program computes from the weights of kept "
@@ -3341,7 +3534,10 @@ def phase_export(card, root, work):
                          kept_matrices=len(kept), dcn_operators=len(got["wmat_args"]))
         log(f"export {name}: reloaded in {got['load_s']:.1f} s, runs {got['ms']} ms, bit for bit "
             f"the eager module, launches {res[name]['launches']}, {len(kept)} kept "
-            f"matrices held as constants")
+            f"matrices held as constants, knobs {got['knobs'] or 'the defaults'}")
+    t0 = time.perf_counter()
+    res["tiny_int8"]["knob_families"] = knob_families(card, work)
+    res["tiny_int8"]["knob_families"]["s"] = time.perf_counter() - t0
     return res
 
 
@@ -3985,7 +4181,7 @@ def main(argv=None):
             ("checkpoint", lambda: phase_checkpoint(card)),
             ("tiny_int8", lambda: phase_int8_model(
                 bevformer_tiny, card, dev, gen, exclude=None, want=(3, 0, 0, 9, 6, 0),
-                calib_frames=4, methods=("max", "entropy"), n_frames=3, latency_frames=6,
+                calib_frames=2, methods=("max", "entropy"), n_frames=3, latency_frames=6,
                 bf16=True)),
             ("base_int8", lambda: phase_int8_model(
                 bevformer_base, card, dev, gen, exclude=None, want=(6, 0, 0, 12, 6, 26),

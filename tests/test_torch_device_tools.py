@@ -161,7 +161,7 @@ def test_msda_capture_replays_bit_for_bit(tmp_path):
     for name in rec["saved"]:
         saved = np.load(tmp_path / f"{name}.npz")
         assert bool(saved["int8"]) == name.startswith("sca")  # TSA's tables excluded
-        got = mcr.replay_as_captured(tmp_path / f"{name}.npz").float().numpy()
+        got = mcr.replay_as_captured(tmp_path / f"{name}.npz", device="cpu").float().numpy()
         assert np.array_equal(got, saved["out"]), name
     rep = mcr.main(["replay", "--dir", str(tmp_path), "--layer", "chain", "--device", "cpu"])
     assert rep["ok"] and len(rep["rows"]) == 4 * 3

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from bevformer_tensorrt_tpu_torch.models.layers import QConv, QDense, _quantize_input, int8_im2col
 from bevformer_tensorrt_tpu_torch.ops import attention as attn_ops
+from bevformer_tensorrt_tpu_torch.ops import knobs
 from bevformer_tensorrt_tpu_torch.ops import msda as msda_ops
 from bevformer_tensorrt_tpu_torch.quant.fold import (
     attach_quant_scales,
@@ -43,7 +44,7 @@ def test_every_product_shape_gets_a_configuration_that_fits(name):
     Kp = -(-K // int8_ops.K_ALIGN) * int8_ops.K_ALIGN
     assert int8_ops.tensor_map_args(M, Kp, 0, bm) == ((Kp, M), (Kp,), (128, bm))
     assert int8_ops.tensor_map_args(N, Kp, 4096, bn) == ((Kp, N), (Kp,), (128, bn))
-    if M * N >= int8_ops.SMALL_OUTPUTS:  # the large tiles leave no SM without a tile
+    if M * N >= knobs.get("GEMM_SMALL_OUTPUTS"):  # the large tiles leave no SM without a tile
         assert -(-M // bm) * -(-N // bn) >= SMS
 
 
@@ -58,7 +59,7 @@ def test_product_configurations_fit_an_sm(config):
 
 
 def test_product_configuration_rule():
-    small = int8_ops.SMALL_OUTPUTS
+    small = knobs.get("GEMM_SMALL_OUTPUTS")
     assert int8_ops.gemm_config(900, 256, 256) == "64x64"      # decoder dense layers
     assert int8_ops.gemm_config(1, 128, 32) == "64x64"         # can_bus
     assert int8_ops.gemm_config(900, 3, 256) == "64x64"        # reference points
@@ -127,15 +128,16 @@ def test_msda_geometry_fits_every_shape(name, esz):
     assert lpp * passes >= L * P > lpp * (passes - 1)  # the passes take every tap once
     assert passes == 1 or L * P > msda_ops.MSDA_THREADS or qt == 1
     assert geo["threads"] == 256 and geo["threads"] % min(lpp, 256) == 0
-    assert 1 <= qt <= nq and (qt * heads * lpp <= msda_ops.MSDA_TAPS_PER_BLOCK or qt == 1)
+    assert 1 <= qt <= nq and (qt * heads * lpp <= knobs.get("MSDA_TAPS_PER_BLOCK") or qt == 1)
     multi = qt * heads * (8 + 4 * cch) if passes > 1 else 0
     assert geo["smem"] == 8 * qt * heads * (4 * lpp + 2) + multi <= msda_ops.SMEM_LIMIT
     assert cch == min(ch, msda_ops.MSDA_MAX_CH) and geo["chunks"] == -(-ch // cch)
     assert geo["vw"] == 16 and geo["lanes_per_row"] == cch * esz // 16 <= 32
     assert geo["blocks"] == bs * -(-nq // qt) * geo["chunks"]
     if passes == 1:
-        cap = msda_ops.MSDA_TAPS_PER_BLOCK // (heads * lpp)  # spread over blocks where it can
-        assert qt == max(1, min(nq, cap, -(-bs * nq // msda_ops.MSDA_MIN_BLOCKS)))
+        cap = knobs.get("MSDA_TAPS_PER_BLOCK") // (heads * lpp)  # spread over blocks where it can
+        min_blocks = knobs.get("MSDA_BLOCKS_PER_SM") * SMS
+        assert qt == max(1, min(nq, cap, -(-bs * nq // min_blocks)))
     rpw, seg, warps = geo["rows_per_warp"], geo["seg"], 256 // 32
     assert rpw * geo["lanes_per_row"] <= 32 < 2 * rpw * geo["lanes_per_row"]
     assert seg & (seg - 1) == 0 and 1 <= seg <= rpw
