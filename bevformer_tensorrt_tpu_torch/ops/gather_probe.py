@@ -22,9 +22,14 @@ import numpy as np
 import torch
 
 from . import _cuda
+from .msda import H100_SMS
 
-ROW = 32  # channels of a gather_blend row: one per lane of the kernel's warp
+ROW = 32  # channels of a gather_blend row
 _BLEND_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+BLEND_THREADS = 256      # a gather_blend block
+BLEND_WARPS_PER_SM = 32  # warp rounds an SM should get before row groups share outputs
+BLEND_BLOCKS_PER_SM = 4  # blocks a launch is spread over, per SM, where it has the queries
+BLEND_QUERIES = 256      # consecutive queries a block owns, at most
 
 
 def make_workload(rng, B: int, nq: int, taps: int, keys: int, span: int, row: int = 0):
@@ -80,13 +85,46 @@ def gather_blend_plain(table, idx, w):
     return torch.einsum("bqe,bqec->bqc", w.reshape(B, nq, -1).float(), rows.float())
 
 
+def gather_blend_geometry(B: int, nq: int, entries: int, esz: int) -> dict:
+    """How `csrc/gather_probe.cu` launches `gather_blend` for B tables of nq
+    queries with `entries` (taps x 4) each and rows of 32 values of `esz`
+    bytes: each lane loads 16 bytes of a row, so a row group of
+    `lanes_per_row` lanes reads a row and a warp instruction reads
+    `rows_per_warp` rows; a group loads `chunk` entries' indices and weights
+    at once (16 bytes a lane).  `seg`, the row groups that share one output
+    (each a 1 / seg share of its chunks, summed by shuffles): 1, doubled
+    while the outputs give the card fewer than BLEND_WARPS_PER_SM warp
+    rounds an SM and the output has chunks to share.  `qt`, the consecutive
+    queries of one table a block owns: whole rounds of its warps (a
+    round is 8 warps x rows_per_warp / seg outputs), as many as
+    BLEND_QUERIES holds, halved while the launch would have fewer than
+    BLEND_BLOCKS_PER_SM blocks an SM.  No shared memory."""
+    if B < 1 or nq < 1 or entries < 4 or entries % 4 or esz not in (1, 2, 4):
+        raise ValueError(f"gather_blend kernel: B {B}, nq {nq}, entries {entries}, rows of "
+                         f"{esz}-byte values: not a problem it takes")
+    lanes = ROW * esz // 16
+    rpw = 32 // lanes
+    chunk = 4 * lanes
+    chunks = -(-entries // chunk)
+    seg = 1
+    while 2 * seg <= min(rpw, chunks) and B * nq * seg < rpw * H100_SMS * BLEND_WARPS_PER_SM:
+        seg *= 2
+    per_round = BLEND_THREADS // 32 * rpw // seg
+    rounds = max(1, BLEND_QUERIES // per_round)
+    while rounds > 1 and B * -(-nq // (per_round * rounds)) < BLEND_BLOCKS_PER_SM * H100_SMS:
+        rounds //= 2
+    qt = per_round * rounds
+    return dict(threads=BLEND_THREADS, qt=qt, seg=seg, lanes_per_row=lanes, rows_per_warp=rpw,
+                chunk=chunk, blocks=B * -(-nq // qt), smem=0)
+
+
 def _lib():
     lib = _cuda.load("gather_probe")
     if lib.gather_rows.argtypes is None:
         lib.gather_rows.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                                     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
         lib.gather_rows.restype = ctypes.c_int
-        lib.gather_blend.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.gather_blend.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         lib.gather_blend.restype = ctypes.c_int
     return lib
 
@@ -151,15 +189,18 @@ def gather_blend(table, idx, w):
     nq, entries = idx.shape[1], idx.shape[2] * idx.shape[3]
     if keys >= 2 ** 31 // ROW or nq >= 2 ** 31 or entries >= 2 ** 31:
         raise ValueError("gather_blend kernel: shape beyond the kernel's index range")
+    if any(t.data_ptr() % 16 for t in (table, idx, w)):
+        raise ValueError("gather_blend kernel: table, idx and w must start 16-byte aligned")
     out = torch.empty((B, nq, ch), dtype=torch.float32, device=table.device)
     if out.numel() == 0:
         return out
     if entries == 0 or keys == 0:
         return out.zero_()
+    geo = gather_blend_geometry(B, nq, entries, table.element_size())
     lib = _lib()
     err = lib.gather_blend(table.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(), B,
-                           keys, nq, entries, _BLEND_DTYPES[table.dtype],
-                           torch.cuda.current_stream(table.device).cuda_stream)
+                           keys, nq, entries, _BLEND_DTYPES[table.dtype], geo["qt"], geo["seg"],
+                           geo["threads"], torch.cuda.current_stream(table.device).cuda_stream)
     _cuda.check(lib, err, "gather_blend kernel launch")
     gather_blend.launches += 1
     return out

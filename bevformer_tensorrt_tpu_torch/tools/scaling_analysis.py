@@ -2,14 +2,15 @@
 projection of its cost (port of `tools/scaling_analysis.py`).
 
     python -m bevformer_tensorrt_tpu_torch.tools.scaling_analysis [--dp 2 --tp 4]
-        [--model micro] [--device cpu|cuda] [--tp-bw B/s] [--dp-bw B/s] [--out FILE]
+        [--model micro] [--device cuda|cpu] [--tp-bw B/s] [--dp-bw B/s] [--out FILE]
 
 The JAX tool walks the compiled HLO for the collectives GSPMD inserted.  The
 port calls its collectives itself, and `parallel/comm.py` counts each by
 kind and mesh axis with its payload bytes: this tool runs dp x tp ranks (one
 process each, as `scaling_bench`), takes one warm-up step, resets the
 counters and reads them over one `train_step`, on rank 0.  The counts and
-bytes are exact.
+bytes are exact.  The ranks run on the card unless `--device cpu` is given
+(gloo ranks on the CPU); without a card the tool raises before it starts any.
 
 The projection keeps the JAX tool's ring model: an all-reduce of b bytes in
 a group of g costs 2 b (g - 1) / g / bw, an all-gather b (g - 1) / g / bw
@@ -34,6 +35,7 @@ from pathlib import Path
 
 import torch
 
+from ..runtime.engine import resolve_device
 from .scaling_bench import _sync, join, spawn, train_setup
 
 TP_BW = 450e9  # bytes/s a direction: H100 SXM NVLink 4 (published), an assumption
@@ -90,7 +92,7 @@ def main(argv=None):
     ap.add_argument("--dp", type=int, default=2)
     ap.add_argument("--tp", type=int, default=4)
     ap.add_argument("--model", default="micro", choices=("micro", "tiny", "small", "base"))
-    ap.add_argument("--device", default="cpu", choices=("cuda", "cpu"))
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--tp-bw", type=float, default=TP_BW, help="bytes/s of the tp link")
     ap.add_argument("--dp-bw", type=float, default=DP_BW, help="bytes/s of the dp link")
     ap.add_argument("--out", default=None)
@@ -98,6 +100,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.result:
         return rank_main(args)
+    resolve_device(args.device)  # no card: raise here, before any rank starts
     n = args.dp * args.tp
     with tempfile.TemporaryDirectory() as tmp:
         res = Path(tmp) / "rank0.json"

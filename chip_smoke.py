@@ -256,7 +256,8 @@ Ahead of phase 10, three phases of their own:
      versions at the base and tiny cross-attention shapes for float32,
      bfloat16 and int8 rows, `torch.gather` timed beside the row gather and
      `F.embedding_bag` with per-sample weights beside the blend; the MSDA
-     kernel's own indices replayed through `gather_blend`; then the
+     kernel's own indices at tiny's and base's cross-attention shapes
+     replayed through `gather_blend`; then the
      kernel bench tool, driven through its `main`, with the launch counts
      set to 0 before and read after.
   c. One tiny frame from an engine built through
@@ -897,8 +898,9 @@ def phase_probes(dev, gen):
     the row gather; float32 sums in another order for the blend) at the base
     and tiny cross-attention shapes, `torch.gather` timed beside
     `gather_rows` and `F.embedding_bag` beside `gather_blend` (and held
-    against it); the MSDA kernel's own gather, replayed through
-    `gather_blend`, against the MSDA plain version; then the kernel bench
+    against it); the MSDA kernel's own gather at tiny's and base's
+    cross-attention shapes, replayed through `gather_blend`, against the MSDA
+    plain version; then the kernel bench
     tool, driven as a user would, as the path that launches them."""
     rows = {"gather_rows": [], "gather_blend": []}
     for name, spec in PROBE_SHAPES.items():
@@ -955,17 +957,21 @@ def phase_probes(dev, gen):
         del idx, w, flat
 
     # MSDA's own gather through the probe: the same function by another kernel
-    (value, ref, off, attn), shapes = kc.msda_inputs(MSDA_SHAPES["sca"], torch.float32, gen, dev)
-    table, idx, w = kc.msda_gather_operands(value, ref, off, attn, shapes)
-    bs, nq, heads, ch = value.shape[0], ref.shape[1], value.shape[2], value.shape[3]
-    got = probe_ops.gather_blend(table, idx, w).reshape(bs, heads, nq, ch)
-    got = got.permute(0, 2, 1, 3).reshape(bs, nq, heads * ch)
-    want = msda_ops.multi_scale_deformable_attn_plain(value, ref, off, attn, shapes)
-    replay_err = max_err(got, want, torch.float32, "gather_blend on MSDA's indices")
-    log(f"gather_blend on the MSDA kernel's indices and weights (tiny SCA) vs MSDA plain: "
-        f"err {replay_err:.3e}")
-    del value, ref, off, attn, table, idx, w, got, want
-    torch.cuda.empty_cache()
+    replay_err = {}
+    for name in ("sca", "base4"):
+        (value, ref, off, attn), shapes = kc.msda_inputs(MSDA_SHAPES[name], torch.float32, gen,
+                                                         dev)
+        table, idx, w = kc.msda_gather_operands(value, ref, off, attn, shapes)
+        bs, nq, heads, ch = value.shape[0], ref.shape[1], value.shape[2], value.shape[3]
+        got = probe_ops.gather_blend(table, idx, w).reshape(bs, heads, nq, ch)
+        got = got.permute(0, 2, 1, 3).reshape(bs, nq, heads * ch)
+        want = msda_ops.multi_scale_deformable_attn_plain(value, ref, off, attn, shapes)
+        replay_err[name] = max_err(got, want, torch.float32,
+                                   f"gather_blend on MSDA's indices ({name})")
+        log(f"gather_blend on the MSDA kernel's indices and weights ({name}) vs MSDA plain: "
+            f"err {replay_err[name]:.3e}")
+        del value, ref, off, attn, table, idx, w, got, want
+        torch.cuda.empty_cache()
 
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -4323,6 +4329,7 @@ def main(argv=None):
         rows = probes["rows"][name]
         main_rows = [r for r in rows if r["shape"] == "sca_base" and r["dtype"] == "float32"]
         row = main_rows[0]
+        base_ms = {r["dtype"]: r["ms"] for r in rows if r["shape"] == "sca_base"}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "bevformer_tensorrt_tpu_torch/csrc/gather_probe.cu", "replaces": replaces,
@@ -4330,11 +4337,12 @@ def main(argv=None):
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")},
             "max_abs_err_all_shapes": max(r["max_abs_err"] for r in rows),
+            "ms_by_dtype": base_ms,
             "per": "one launch at the base cross-attention shape (48 tables of 30825 keys, "
                    "14080 queries, 32 taps, 4 corners), float32 rows, span 4; library_ms is "
                    "torch.gather for gather_rows and F.embedding_bag with per-sample weights "
                    "for gather_blend; launches is the count of one run of the kernel bench "
-                   "tool",
+                   "tool; ms_by_dtype is the launch at that shape for each row type",
             "shapes": rows})
     add_det2d(kernels, res["det2d"])
     im2col = next(k for k in kernels if k["name"] == "dcn_im2col")

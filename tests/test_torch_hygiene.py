@@ -421,6 +421,19 @@ def test_new_clis_default_to_cuda(tool, tmp_path, monkeypatch):
     assert not (tmp_path / "w").exists()
 
 
+def test_scaling_analysis_defaults_to_cuda(monkeypatch):
+    """`tools/scaling_analysis.py` runs its ranks on CUDA unless `--device
+    cpu` is given: without a card it raises before it starts any rank."""
+    from bevformer_tensorrt_tpu_torch.tools import scaling_analysis
+
+    started = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(scaling_analysis, "spawn", lambda *a, **k: started.append(a))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scaling_analysis.main(["--dp", "1", "--tp", "2"])
+    assert started == []
+
+
 def test_bevdet_engine_refuses_cpu_fallback(monkeypatch):
     from bevformer_tensorrt_tpu_torch.configs.bevdet import bevdet_micro
     from bevformer_tensorrt_tpu_torch.models.necks.view_transformer import PoolingRanks

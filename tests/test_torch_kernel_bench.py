@@ -138,6 +138,58 @@ def test_msda_gather_operands_replay_the_op(rng):
     assert (w.reshape(bs * 2, nq, -1).sum(-1) <= 1 + 1e-5).all()  # softmax x bilinear x validity
 
 
+def blend_hits(nq, entries, geo):
+    """How often the loops of `csrc/gather_probe.cu::gather_blend_kernel`
+    reach each (query, entry) of one table under `geo` (every table's blocks
+    walk the same way), and the blocks of one table: a block per tile of qt
+    queries; warp w takes rounds o0 = w * per_warp, + 8 * per_warp, ... while
+    o0 < qt and the tile has query o0; row group g takes output o0 + g / seg
+    (where it is < qt and a query) and chunks g % seg, + seg, ..., each up to
+    the warp's steps for its first chunk of the round."""
+    qt, seg, rpw, chunk = geo["qt"], geo["seg"], geo["rows_per_warp"], geo["chunk"]
+    warps, per_warp = geo["threads"] // 32, rpw // seg
+    q0 = np.arange(0, nq, qt)
+    chunks = -(-entries // chunk)
+    hits = np.zeros((nq, entries), np.int64)
+    for warp in range(warps):
+        for o0 in range(warp * per_warp, qt, warps * per_warp):
+            for g in range(rpw):
+                og, sg = divmod(g, seg)
+                q = q0 + o0 + og
+                q = q[(q0 + o0 < nq) & (o0 + og < qt) & (q < nq)]
+                for c0 in range(0, chunks, seg):
+                    steps = min(chunk, entries - c0 * chunk)
+                    e = (c0 + sg) * chunk + np.arange(steps)
+                    e = e[e < entries]
+                    np.add.at(hits, (q[:, None], e[None, :]), 1)
+    return hits, len(q0)
+
+
+@pytest.mark.parametrize("esz", [4, 2, 1])
+@pytest.mark.parametrize("B,nq,taps", [
+    (48, 14080, 32), (48, 896, 8),  # the base and tiny cross-attention shapes
+    (3, 77, 1), (3, 77, 3), (4, 1, 8), (1, 500, 32), (2, 1000, 5), (1, 100, 64)])
+def test_gather_blend_geometry_covers_every_entry_once(B, nq, taps, esz):
+    """The blend's launch geometry: every (table, query) and each of its
+    entries is reached exactly once by the kernel's loops, the grid and the
+    block fit the card, no shared memory (under Hopper's 227 KB), and the
+    values the kernel checks (a power-of-two seg of at most the rows a warp
+    instruction reads, a tile of whole warp rounds)."""
+    entries = 4 * taps
+    geo = gather_probe.gather_blend_geometry(B, nq, entries, esz)
+    assert geo["lanes_per_row"] * 16 == 32 * esz and geo["rows_per_warp"] * geo["lanes_per_row"] == 32
+    hits, tiles = blend_hits(nq, entries, geo)
+    assert (hits == 1).all()
+    assert geo["blocks"] == B * tiles < 2 ** 31 and geo["threads"] == 256
+    assert geo["smem"] == 0 <= 232448
+    seg, rpw = geo["seg"], geo["rows_per_warp"]
+    assert seg & (seg - 1) == 0 and seg <= rpw and geo["qt"] % (rpw // seg) == 0
+    if B * nq >= 132 * 32 * rpw:  # outputs enough to fill the card: one group an output
+        assert seg == 1
+    with pytest.raises(ValueError, match="entries"):
+        gather_probe.gather_blend_geometry(B, nq, entries + 2, esz)
+
+
 def test_bounds_count_bytes_once_and_name_what_binds():
     assert kc.bound(3.35e9, 0, torch.float32) == (pytest.approx(1.0), "bytes")
     assert kc.bound(0, 67e9, torch.float32) == (pytest.approx(1.0), "operations")

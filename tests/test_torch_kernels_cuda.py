@@ -459,6 +459,56 @@ def test_gather_rows_takes_other_row_widths(cuda):
                            probe_ops.gather_rows_plain(table, idx))
 
 
+BLEND_EDGES = {
+    # name: (B, keys, nq, taps, span of make_workload or None for uniform indices, index range)
+    "taps1": (3, 500, 77, 1, None, (0, 500)),   # a chunk of 4 entries: ragged row groups
+    "taps3": (3, 500, 77, 3, None, (0, 500)),
+    "nq1": (4, 300, 1, 8, None, (0, 300)),
+    "nq_ragged": (2, 700, 0, 8, None, (0, 700)),  # nq: 3 block tiles and 5 queries
+    "one_table": (1, 2000, 500, 32, None, (0, 2000)),  # few outputs: groups share them
+    "keys_below_a_window": (2, 50, 100, 8, None, (0, 50)),
+    "out_of_range": (3, 1000, 64, 8, None, (-1000, 2000)),  # clamped at both ends
+    "span1": (6, 3000, 512, 32, 1, None),
+    "span240": (2, 30825, 256, 32, 240, None),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("case", sorted(BLEND_EDGES))
+def test_gather_blend_edges_match_plain(cuda, dtype, case):
+    """The blend at the edges of its launch geometry (ragged row groups and
+    chunks, one query, a last block tile with few queries, one table, fewer
+    keys than a 128-key window, indices past both ends, the sweep's tightest
+    and loosest locality) against the plain version, float32 sums in another
+    order (1e-5)."""
+    import numpy as np
+
+    B, keys, nq, taps, span, lim = BLEND_EDGES[case]
+    esz = torch.empty((), dtype=dtype).element_size()
+    if nq == 0:
+        qt = probe_ops.gather_blend_geometry(B, 1000, 4 * taps, esz)["qt"]
+        nq = 3 * qt + 5
+        assert nq % probe_ops.gather_blend_geometry(B, nq, 4 * taps, esz)["qt"]
+    g = torch.Generator().manual_seed(8)
+    if span:
+        idx, w = probe_ops.make_workload(np.random.default_rng(2), B, nq, taps, keys, span, 200)
+        idx, w = torch.from_numpy(idx).to(cuda), torch.from_numpy(w).to(cuda)
+    else:
+        idx = torch.randint(*lim, (B, nq, taps, 4), generator=g, dtype=torch.int32).to(cuda)
+        w = torch.randn(B, nq, taps, 4, generator=g).to(cuda)
+    if dtype == torch.int8:
+        table = torch.randint(-127, 128, (B, keys, 32), generator=g, dtype=torch.int8).to(cuda)
+    else:
+        table = torch.randn(B, keys, 32, generator=g).to(cuda, dtype)
+    before = probe_ops.gather_blend.launches
+    got = probe_ops.gather_blend(table, idx, w)
+    torch.cuda.synchronize()
+    assert probe_ops.gather_blend.launches == before + 1
+    want = probe_ops.gather_blend_plain(table, idx, w)
+    assert got.dtype == torch.float32 and got.shape == want.shape == (B, nq, 32)
+    assert rel(got, want) < 1e-5
+
+
 @pytest.mark.parametrize("M,K,N", [
     (900, 256, 256), (2500, 512, 256), (1, 18, 128), (900, 256, 3), (5000, 147, 64),
     (2250, 4608, 512), (129, 16, 65), (34800, 256, 1024), (77, 576, 27),
@@ -689,6 +739,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         probe_ops.gather_blend(table.half(), idx, ones)
     with pytest.raises(ValueError, match="contiguous"):
         probe_ops.gather_blend(table, idx.transpose(1, 2).contiguous().transpose(1, 2), ones)
+    with pytest.raises(ValueError, match="16-byte"):  # a contiguous view one value in
+        probe_ops.gather_blend(torch.zeros(2 * 20 * 32 + 1, device=cuda)[1:].view(2, 20, 32),
+                               idx, ones)
     with pytest.raises(ValueError, match="16"):
         probe_ops.gather_rows(table[..., :3].contiguous(), idx.reshape(2, -1))
     with pytest.raises(ValueError, match="one device"):

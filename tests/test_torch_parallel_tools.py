@@ -15,7 +15,7 @@ from bevformer_tensorrt_tpu_torch.tools import scaling_analysis, scaling_bench
 def analysis():
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("OMP_NUM_THREADS", "1")  # the ranks share the test machine's cores
-        return scaling_analysis.main(["--dp", "2", "--tp", "2"])
+        return scaling_analysis.main(["--dp", "2", "--tp", "2", "--device", "cpu"])
 
 
 def test_collective_counts_follow_the_model(analysis):
